@@ -6,7 +6,7 @@ Layout: nodes flattened in DFS preorder. An interior node's "hit" successor
 is implicitly ``node+1`` (its left child); every node stores a ``skip`` link
 — the preorder index of the next subtree — taken on a miss (or after a leaf).
 Traversal is therefore a single while-loop with NO per-ray stack: exactly the
-control shape SIMD/TPU lanes want; per-lane state is one int32 node cursor.
+control shape SIMD lanes want; per-lane state is one int32 node cursor.
 
 Build: ``method="sah"`` (default) is a 16-bin binned surface-area-heuristic
 split — it produces tighter subtrees than a median split, which matters

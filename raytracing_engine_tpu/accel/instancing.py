@@ -19,6 +19,9 @@ import jax.numpy as jnp
 
 from raytracing_engine_tpu.accel.bvh import BVH, bvh_intersect
 
+# f32 ray transforms: keep full precision where a card would use TF32
+HIGHEST = jax.lax.Precision.HIGHEST
+
 
 @jax.tree_util.register_dataclass
 @dataclasses.dataclass
@@ -111,8 +114,9 @@ def instanced_intersect(inst: InstancedMesh, o3, d3, t_min=1e-3):
     for k in range(n):
         inv = inst.inv_rot[k]
         s = inst.scale[k]
-        oo = jnp.einsum("ij,...j->...i", inv, o3 - inst.trans[k]) / s
-        dd = jnp.einsum("ij,...j->...i", inv, d3)
+        oo = jnp.einsum("ij,...j->...i", inv, o3 - inst.trans[k],
+                        precision=HIGHEST) / s
+        dd = jnp.einsum("ij,...j->...i", inv, d3, precision=HIGHEST)
 
         t_obj, ridx, _, _ = bvh_intersect(
             inst.bvh, oo, dd, t_min=t_min / s, t_max=best_t / s
@@ -122,7 +126,8 @@ def instanced_intersect(inst: InstancedMesh, o3, d3, t_min=1e-3):
 
         safe = jnp.maximum(ridx, 0)
         n_obj = jnp.cross(inst.bvh.e1[safe], inst.bvh.e2[safe])
-        n_w = jnp.einsum("ij,...j->...i", inst.rot[k], n_obj)
+        n_w = jnp.einsum("ij,...j->...i", inst.rot[k], n_obj,
+                         precision=HIGHEST)
 
         best_t = jnp.where(ok, t_w, best_t)
         best_inst = jnp.where(ok, k, best_inst)
@@ -137,10 +142,10 @@ def instanced_intersect(inst: InstancedMesh, o3, d3, t_min=1e-3):
 @dataclasses.dataclass
 class InstancedClusters:
     """Two-level PT scene container: the shared base-mesh ClusterSet plus
-    the packed SMEM instance table (ops.pallas.instanced_intersect.
+    the packed instance table (ops.pallas.instanced_intersect.
     pack_instances layout; col 19 = per-instance material id).
 
-    Pass as `bvh` to render_pt_mega / render_pt_fast: the FULL NEE+MIS
+    Pass as `bvh` to render_pt_fast: the FULL NEE+MIS
     bounce loop then runs over the instanced scene (config 5 as a
     first-class path-traced citizen — the reference shades everything it
     draws, /root/reference/shaders/fragment.glsl:127-187)."""

@@ -7,7 +7,7 @@ movement vectors rotated into the camera frame and ACCUMULATED into the
 world-space position (src/main.rs:772 — ``pos`` accumulates across frames).
 Coordinate convention: Z-up, Y-forward, X-right (src/main.rs:350-357).
 
-There is no window system on a TPU host; interaction becomes scripted input
+There is no window system on a headless host; interaction becomes scripted input
 streams / camera paths replayed through the same integration math, so
 interactive parity is testable (SURVEY.md §7).
 """

@@ -46,13 +46,13 @@ class RenderConfig:
     fov: float = 1.0
     max_march_steps: int = 256
     max_shadow_steps: int = 256
-    # Pallas kernel tile caps (ops/pallas/common.py pick_tile). Part of this
-    # frozen config so kernel specializations key on them under jit.
-    # Measured at 1080p on v5e: (64,256) 3.36 ms < (32,256) 3.53 <
-    # (16,256) 5.49 < (8,128) 6.78 — bigger tiles amortize loop overhead
-    # faster than per-tile convergence degrades at this scene scale.
-    tile_h: int = 64
-    tile_w: int = 256
+    # Cone-march kernel block (ops/pallas/depth.py block_dims): powers of
+    # two, one Triton program per block, whose march stops when the block's
+    # own pixels converge; 16x32 measured fastest at 1080p on the H100
+    # (PERF.md). Part of this frozen config so kernel specializations key
+    # on them under jit.
+    tile_h: int = 16
+    tile_w: int = 32
 
     def __post_init__(self):
         if self.width % 8 or self.height % 8:
@@ -65,6 +65,10 @@ class RenderConfig:
             # Reference enforces width >= height on resize
             # (src/main.rs:698-709); the pyramid sizing assumes it.
             raise ValueError("height must be <= width")
+        for name in ("tile_h", "tile_w"):
+            v = getattr(self, name)
+            if v <= 0 or v & (v - 1):
+                raise ValueError(f"{name}={v} must be a power of two")
 
     # ---- depth pyramid geometry -------------------------------------------------
     # The reference builds N storage images, coarsest ~8x8(×aspect), each level

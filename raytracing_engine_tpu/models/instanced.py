@@ -30,6 +30,29 @@ def _sel(idx, table, n):
     return out
 
 
+def instanced_camera_rays(cam_pos, yaw, width, height, fov=1.0, row0=0,
+                          band_h=None):
+    """Pinhole camera rays of the instanced frame as (o, d) plane triples:
+    position + yaw about +Z looking +Y (reference convention,
+    src/main.rs:402-414). row0/band_h select a horizontal band."""
+    bh = band_h or height
+    iy = jax.lax.broadcasted_iota(jnp.int32, (bh, width), 0) + row0
+    ix = jax.lax.broadcasted_iota(jnp.int32, (bh, width), 1)
+    ncx = ((ix.astype(jnp.float32) + 0.5) * 2.0 / width - 1.0) * fov
+    ncy = ((iy.astype(jnp.float32) + 0.5) * 2.0 / height - 1.0) * (
+        fov * height / width)
+
+    cy, sy = jnp.cos(yaw), jnp.sin(yaw)
+    dx = ncx * cy - sy
+    dy = ncx * sy + cy
+    dz = ncy
+    inv = 1.0 / jnp.sqrt(dx * dx + dy * dy + dz * dz)
+    d = (dx * inv, dy * inv, dz * inv)
+    o = tuple(jnp.broadcast_to(cam_pos[i], d[0].shape) + 0.0 * d[0]
+              for i in range(3))
+    return o, d
+
+
 @partial(jax.jit, static_argnames=("width", "height", "shadows", "interpret",
                                    "fov", "shadow_samples", "light_radius",
                                    "band_h"))
@@ -66,20 +89,8 @@ def render_instanced_phong(inst_tab, cs, inst_mat, mat_albedo,
     of the full-image render.
     """
     bh = band_h or height
-    iy = jax.lax.broadcasted_iota(jnp.int32, (bh, width), 0) + row0
-    ix = jax.lax.broadcasted_iota(jnp.int32, (bh, width), 1)
-    ncx = ((ix.astype(jnp.float32) + 0.5) * 2.0 / width - 1.0) * fov
-    ncy = ((iy.astype(jnp.float32) + 0.5) * 2.0 / height - 1.0) * (
-        fov * height / width)
-
-    cy, sy = jnp.cos(yaw), jnp.sin(yaw)
-    dx = ncx * cy - sy
-    dy = ncx * sy + cy
-    dz = ncy
-    inv = 1.0 / jnp.sqrt(dx * dx + dy * dy + dz * dz)
-    d = (dx * inv, dy * inv, dz * inv)
-    o = tuple(jnp.broadcast_to(cam_pos[i], d[0].shape) + 0.0 * d[0]
-              for i in range(3))
+    o, d = instanced_camera_rays(cam_pos, yaw, width, height, fov, row0,
+                                 band_h)
 
     t, code, nx, ny, nz = instanced_cluster_intersect(
         inst_tab, cs, o, d, attrs=True, interpret=interpret, origin=cam_pos)

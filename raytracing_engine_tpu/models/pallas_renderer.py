@@ -1,7 +1,7 @@
-"""Pallas renderer — the TPU-native flagship pipeline.
+"""Pallas renderer — the production cone-march pipeline (Triton kernels).
 
 Same math as models/conemarch.py (and the golden reference), but the hot
-loops run in Pallas kernels with per-tile convergence (ops/pallas/). The
+loops run in Pallas kernels with per-block convergence (ops/pallas/). The
 pyramid driver mirrors the reference's per-level dispatch loop
 (src/main.rs:300-316); the 2x seed upsample between levels is a cheap XLA
 gather.

@@ -1,12 +1,11 @@
-"""Pallas TPU kernels for the renderer hot paths.
+"""Pallas kernels for the renderer hot paths (Triton route).
 
-Layout philosophy: everything inside a kernel is a 2D (tile_h, tile_w)
-float32 plane — the last axis rides the 128 VPU lanes, the second-to-last
-the 8 sublanes. Vectors (ray dirs, positions, colors) are component planes,
-never (..., 3) arrays (a trailing 3 would waste 125/128 lanes). The <= 8
-scene objects/materials/lights are unrolled at compile time with scalar
-parameters read from SMEM — the TPU analog of the reference's uniform
-buffer + per-thread loops.
+Inside a kernel every per-pixel or per-ray quantity is a 2D block of f32
+component planes — vectors (ray dirs, positions, colors) are never
+(..., 3) arrays. The <= 8 scene objects/materials/lights are unrolled at
+compile time with scalar parameters read once per program — the analog of
+the reference's uniform buffer + per-thread loops. `common.py` holds the
+route, interpret-mode and block helpers.
 """
 
 from raytracing_engine_tpu.ops.pallas.depth import depth_level_pallas  # noqa: F401

@@ -1,20 +1,26 @@
-"""Pallas cluster intersector — dense triangle intersection for TPU.
+"""Pallas cluster intersector — block-of-rays triangle sweep (Triton route).
 
-Three-level hierarchical sweep per ray tile: a while-loop over
-SUPER-clusters (union AABBs of SUPER=16 consecutive clusters, scalar boxes
-in SMEM at dynamic sublane indices — supported) slab-tests each super box
-vectorized against the tile; only when some ray enters does an inner
-fori_loop visit its child clusters; a touched cluster's 128-triangle slice
-is then tested in SUBS sub-blocks, each gated by its own AABB (stored in
-the slice's spare rows 14-19 and read as static-lane scalars), so an
-incoherent tile pays only for the SUB_TRIS-sized Baldwin–Weber batches it
-actually needs. No gathers, no dynamic lane indexing anywhere.
+Each program owns one (block_h, block_w) block of rays and walks the
+cluster hierarchy of accel/clusters.py:
 
-The sweep body (`cluster_sweep`) is shared by two consumers:
-- the standalone `cluster_intersect` pallas_call (closest-hit / any-hit),
-- the path-tracing megakernel (ops/pallas/pt_kernel.py), which passes a
-  `KernelClusters` view of the same tables so the WHOLE bounce loop runs
-  in-kernel for mesh scenes.
+  while over SUPER-clusters (near-to-far order, any-hit early exit):
+    slab-test the super box against the block; if any ray enters,
+    loop over its SUPER child clusters:
+      slab-test the cluster box; if any ray enters, for each of its SUBS
+      sub-boxes (cluster rows 14-19) that some ray enters, run the
+      SUB_TRIS Baldwin–Weber triangle tests of that sub-block.
+
+Whole boxes are culled per block, so a block of coherent rays pays only for
+the triangles near it. Every table access is a scalar read at a computed
+index (the whole block reads the same triangle), so nothing is loaded
+whole. With attrs=True the sweep also selects the hit's shading normal,
+material, area and — for smooth / UV tables — interpolated normal, texture
+UV and tangent, which the plain skip-link BVH path (accel/bvh.py) cannot
+provide.
+
+The sweep body (`cluster_sweep`) is shared with the instanced intersector
+(ops/pallas/instanced_intersect.py), which runs it once per instance in
+object space.
 """
 
 from __future__ import annotations
@@ -27,88 +33,46 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 from jax import lax
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from raytracing_engine_tpu.accel.clusters import (
     CLUSTER, ROWS_SMOOTH, ROWS_UV, SUBS, SUPER, ClusterSet)
+from raytracing_engine_tpu.ops.pallas.common import (
+    any_true,
+    block2d,
+    cdiv,
+    resolve_interpret,
+    triton_call,
+    whole,
+)
 
 SUB_TRIS = CLUSTER // SUBS
 _INF = np.float32(np.inf)
+# Padding rays: parked far away with an all-positive direction, so every
+# slab test fails and an any-hit sweep counts them as already satisfied.
+_PARK_O = np.float32(1e18)
+_PARK_D = np.float32(0.5773502691896258)
+DEFAULT_TILE = (8, 16)
 
 
 @dataclasses.dataclass(frozen=True)
 class KernelClusters:
-    """In-kernel view of a ClusterSet: Pallas refs + static metadata.
-
-    The wavefront trace core accepts this in place of a ClusterSet so its
-    cluster intersection runs *inside* an enclosing Pallas kernel (where a
-    nested pallas_call is impossible and HBM gathers don't exist).
-    """
-    order_ref: Any    # SMEM (S,) int32 — super-cluster visit order
-    sboxes_ref: Any   # SMEM (S, 8) f32 — super boxes
-    boxes_ref: Any    # SMEM (C, 8) f32 — cluster boxes
-    tri_ref: Any      # VMEM (ROWS, T_pad) f32 — triangle rows (14-19: sub-boxes)
+    """In-kernel view of a ClusterSet: refs + static metadata."""
+    order_ref: Any    # (S,) int32 super visit order, or (K, S) with order_row
+    sboxes_ref: Any   # (S, 8) f32 super boxes
+    boxes_ref: Any    # (C, 8) f32 cluster boxes
+    tri_ref: Any      # (ROWS, T_pad) f32 triangle rows (14-19: sub-boxes)
     n_super: int
-    # True only when compiling for real hardware: any-hit sweeps then use
-    # the fast approximate reciprocal (~2^-14 t error — fine for binary
-    # occlusion, bounded by tests_tpu). Interpret mode keeps exact math so
-    # the CPU suite's any-hit == closest-hit invariants stay bitwise.
-    approx_ok: bool = False
-    # Optional per-tile visit-order selection (closest-hit sweeps only):
-    # orders_ref (K, S) int32 SMEM — near-to-far order per reference
-    # origin; refs_ref (K, 4) f32 SMEM — the reference origins (row 0 =
-    # this frame's camera, rows 1+ = mesh farthest-point samples). The
-    # sweep picks the row whose reference is nearest the tile's mean live
-    # ray origin: primary tiles naturally select the camera row, bounce
-    # tiles a mesh-local one (instrumented −18% tests on the config-3
-    # bounce-1 sweep). Results stay order-independent by construction.
-    orders_ref: Any = None
-    refs_ref: Any = None
-    n_orders: int = 0
-    # Forced visit-order row: when not None, order_ref is a 2D (K, S) SMEM
-    # table and the sweep reads row `order_row` (a traced scalar). Used by
-    # the instanced sweep to give EACH INSTANCE its own object-space
-    # near-to-far order (the world camera is meaningless in object space,
-    # so a shared 1D order cannot exist there). Pure perf hint.
+    # When not None, order_ref is (K, S) and the sweep reads row
+    # `order_row` (a traced scalar): the instanced sweep gives each
+    # instance its own object-space near-to-far order. Pure perf hint.
     order_row: Any = None
-    # Row-group-gated test issue: split the per-lane planes into `groups`
-    # row groups (tile_h must divide; (8,128) groups = one f32 vreg) while
-    # the SCALAR traversal stays shared — one super while-loop, one child
-    # fori_loop, one sub-box scalar read per gate, entered when ANY
-    # group's rays need it — and only the SUB_TRIS triangle-test batches
-    # (~84% of issued lane-ops, benchmarks/instrument_config3.json) issue
-    # per group, each gated by its own group's sub_hit. Bit-exact vs
-    # groups=1: per-lane arithmetic is unchanged, and a skipped group had
-    # sub_hit all-false there, so every skipped test would have failed its
-    # `ok` gate anyway. History: v1 ran the WHOLE sweep per group and
-    # measured NEGATIVE on chip (config 3 @512²: 163.7 → 185.4 (g2) →
-    # 246.9 ms (g4)) — the duplicated scalar traversal dominated. This
-    # shared-traversal form keeps v1's lane-issue savings (the replayed
-    # model predicted ~2× less test issue at g4,
-    # benchmarks/experiment_subgroups.py) without the duplication — and
-    # STILL measures negative: 163.2 → 170.4 (g2) → 227.4 ms (g4). The
-    # per-(block, group) lax.cond branches alone (~0.4-0.5 µs each on
-    # Mosaic) outweigh the saved issue. Kept (default 1 = the ungrouped
-    # graph) as the committed, runnable record of the ruled-out lever.
-    groups: int = 1
-    # Emit world texture-u tangent attr planes (UV tables only): the
-    # per-triangle tangent d(u_tex)/dp = du1*r1 + du2*r2 comes from the
-    # barycentric gradient rows already in the table (6 SCALAR FMAs per
-    # test — the tangent is triangle-constant — plus 3 vector selects).
-    # Static; off keeps the emitted program identical to before.
+    # Emit the world texture-u tangent attr planes (UV tables only).
     emit_tan: bool = False
-    # Opt-in: use the fast approximate reciprocal (~2^-14 relative t
-    # error) in CLOSEST-hit triangle tests too, not just any-hit ones.
-    # Shifts hit points ~1 ulp-class and may flip near-coplanar winners;
-    # the default keeps exact math (the reference renders full-precision,
-    # shaders/utilities.glsl). Hardware only (approx_ok gates it).
-    fast_math: bool = False
 
 
 def _slab_vals(bminx, bminy, bminz, bmaxx, bmaxy, bmaxz,
                ox, oy, oz, ix, iy, iz):
-    """Vector slab test of a scalar box against the ray tile."""
+    """Vector slab test of a scalar box against the ray block."""
     tx0 = (bminx - ox) * ix
     tx1 = (bmaxx - ox) * ix
     ty0 = (bminy - oy) * iy
@@ -127,10 +91,16 @@ def _slab_vals(bminx, bminy, bminz, bmaxx, bmaxy, bmaxz,
 
 
 def _slab(box_ref, c, ox, oy, oz, ix, iy, iz):
-    """Slab test of SMEM box row `box_ref[c]` against the ray tile."""
+    """Slab test of box row `box_ref[c]` against the ray block."""
     return _slab_vals(box_ref[c, 0], box_ref[c, 1], box_ref[c, 2],
                       box_ref[c, 3], box_ref[c, 4], box_ref[c, 5],
                       ox, oy, oz, ix, iy, iz)
+
+
+def n_attr_planes(tri_rows: int, emit_tan: bool) -> int:
+    """Attr planes the sweep emits for a table of `tri_rows` rows."""
+    uv = tri_rows >= ROWS_UV
+    return 10 if (uv and emit_tan) else (7 if uv else 5)
 
 
 def cluster_sweep(kc: KernelClusters, o, d, t0, *, t_min, any_hit=False,
@@ -140,441 +110,236 @@ def cluster_sweep(kc: KernelClusters, o, d, t0, *, t_min, any_hit=False,
     o, d: ray component planes; t0: initial best-t plane (doubles as t_max).
     idx < 0 means miss (t is then left at whatever the carry held — mask on
     idx, not t). attr = (nx, ny, nz, mat, 2*area) planes when attrs else ()
-    — plus (u, v) texture-coordinate planes at the end for UV (ROWS_UV)
-    tables. The normal attr is the GEOMETRIC plane normal for flat
-    (ROWS=24) tables and the barycentric-interpolated SHADING normal for
-    smooth (ROWS_SMOOTH) tables — detected statically from the table shape.
-    Results are visit-order independent; order is a near-to-far perf hint.
-
-    kc.groups = G > 1 splits every per-lane plane into G row groups while
-    the scalar hierarchy traversal stays SHARED — a super/cluster/sub gate
-    fires when ANY group's rays need it — and each sub-block's triangle
-    test batch issues per group, only over groups holding a gating lane
-    (see the KernelClusters.groups comment). G=1 is the ungrouped sweep:
-    every plane is then a 1-tuple of the whole tile and the emitted ops
-    are identical to the pre-group implementation.
+    — plus (u, v) texture-coordinate planes for UV (ROWS_UV) tables, plus
+    the (tx, ty, tz) texture-u tangent when kc.emit_tan. The normal attr is
+    the GEOMETRIC plane normal for flat tables and the barycentric-
+    interpolated SHADING normal for smooth (ROWS_SMOOTH) tables — detected
+    statically from the table shape. Results are visit-order independent;
+    order is a near-to-far perf hint.
     """
-    smooth = kc.tri_ref.shape[0] >= ROWS_SMOOTH  # static: table shape
-    uv = kc.tri_ref.shape[0] >= ROWS_UV          # static: table shape
-    tan = uv and kc.emit_tan                     # static: tangent planes
-    n_attr = 10 if tan else (7 if uv else 5)
-    G = kc.groups
-    H = o[0].shape[0]
-    if H % G:
-        G = 1
-    gh = H // G
-    gr = range(G)
-    split = lambda x: tuple(x[g * gh:(g + 1) * gh] for g in gr)
+    tri = kc.tri_ref
+    smooth = tri.shape[0] >= ROWS_SMOOTH  # static: table shape
+    uv = tri.shape[0] >= ROWS_UV          # static: table shape
+    tan = uv and kc.emit_tan
+    n_attr = n_attr_planes(tri.shape[0], kc.emit_tan)
 
-    def gor(ms):
-        """Scalar OR of per-group jnp.any — the shared-traversal gate."""
-        r = jnp.any(ms[0])
-        for m in ms[1:]:
-            r = r | jnp.any(m)
-        return r
+    ox, oy, oz = o
+    dx, dy, dz = d
+    inv_dx = 1.0 / dx
+    inv_dy = 1.0 / dy
+    inv_dz = 1.0 / dz
 
-    def gsum(vals):
-        vals = list(vals)
-        r = vals[0]
-        for v in vals[1:]:
-            r = r + v
-        return r
-
-    t0 = jnp.broadcast_to(t0, o[0].shape).astype(jnp.float32)
-    ox, oy, oz = split(o[0]), split(o[1]), split(o[2])
-    dx, dy, dz = split(d[0]), split(d[1]), split(d[2])
-    inv_dx = tuple(1.0 / v for v in dx)
-    inv_dy = tuple(1.0 / v for v in dy)
-    inv_dz = tuple(1.0 / v for v in dz)
-
-    tg0 = split(t0)
-    # f32 idx carry (no i1/i32 vector carries)
-    idx0 = tuple(jnp.zeros_like(tg) - 1.0 for tg in tg0)
+    t0 = jnp.broadcast_to(t0, ox.shape).astype(jnp.float32)
+    idx0 = jnp.zeros_like(t0) - 1.0  # f32 idx carry
     if any_hit:
-        # Parked lanes (the wavefront core pushes dead / non-candidate ray
-        # origins to ~1e18) count as already-satisfied (idx=0): their slab
-        # tests all fail anyway, but seeding them lets `live` clear — a
-        # tile whose real candidates are all blocked early-exits the sweep
-        # instead of visiting every remaining super-cluster. Callers gate
-        # occlusion by their own candidate mask, so the fake idx is inert.
-        idx0 = tuple(jnp.where(jnp.abs(ox[g]) >= 1e17, 0.0, idx0[g])
-                     for g in gr)
-    if attrs:
-        attr0 = tuple(tuple(jnp.zeros_like(tg0[g]) for _ in range(n_attr))
-                      for g in gr)
-    else:
-        attr0 = tuple(() for _ in gr)
+        # Parked lanes (dead rays, padding) count as already satisfied
+        # (idx=0): their slab tests all fail anyway, but seeding them lets
+        # `live` clear, so a block whose real candidates are all blocked
+        # exits early. Callers gate occlusion by their own candidate mask.
+        idx0 = jnp.where(jnp.abs(ox) >= 1e17, 0.0, idx0)
+    attr0 = tuple(jnp.zeros_like(t0) for _ in range(n_attr)) if attrs else ()
 
-    def pack(t, idx, attr):
-        """(G t-planes, G idx-planes, per-group attr tuples) -> flat tuple
-        for lax carries."""
-        flat = tuple(t) + tuple(idx)
-        for ag in attr:
-            flat += tuple(ag)
-        return flat
-
-    def unpack(flat):
-        t, idx = flat[:G], flat[G:2 * G]
-        if attrs:
-            attr = tuple(
-                tuple(flat[2 * G + n_attr * g:2 * G + n_attr * (g + 1)])
-                for g in gr)
-        else:
-            attr = tuple(() for _ in gr)
-        return t, idx, attr
-
-    def mt_sub(blk, lo, c, sub, ray_hit, t, idx, attr, d3):
-        """SUB_TRIS unrolled Baldwin–Weber tests against one gate block of
-        cluster c's already-loaded (ROWS, 128) slice. The precomputed
-        transform (accel/clusters.py row map) needs no cross products per
-        test — ~30% fewer VPU ops than Möller-Trumbore — and the plane
-        normal / material / area attrs are direct row reads. `lo` is the
-        ray origin rebased to the cluster's local frame (translation
-        invariance; see the row-map comment). All per-lane args cover ONE
-        row group of the tile (the whole tile at kc.groups=1)."""
-        dx, dy, dz = d3
+    def tri_test(j, lo, ray_hit, carry):
+        """Baldwin–Weber test of triangle slot j (a traced index). The
+        precomputed transform (accel/clusters.py row map) needs no cross
+        products; `lo` is the ray origin rebased to the cluster's frame."""
+        t, idx = carry[0], carry[1]
         lox, loy, loz = lo
-        if attrs:
-            if tan:
-                (anx, any_, anz, amat, aarea, auu, avv,
-                 atx, aty, atz) = attr
-            elif uv:
-                anx, any_, anz, amat, aarea, auu, avv = attr
-            else:
-                anx, any_, anz, amat, aarea = attr
-        for k in range(sub * SUB_TRIS, (sub + 1) * SUB_TRIS):
-            nx, ny, nz, nd = blk[0, k], blk[1, k], blk[2, k], blk[3, k]
-            den = nx * dx + ny * dy + nz * dz
-            num = nx * lox + ny * loy + nz * loz + nd
-            # No den==0 guard needed: IEEE semantics make every degenerate
-            # case a miss. Real triangle, parallel ray (den=0, num!=0):
-            # tt = -/+inf fails tt>t_min or tt<t. All-zero padding rows
-            # (den=num=0): tt = NaN (exact 1/0=inf, 0*inf) or -0 (approx),
-            # and NaN comparisons are false / -0 fails tt>t_min.
-            # Shadow sweeps (any_hit) use the fast approximate reciprocal
-            # on hardware: binary occlusion tolerates the ~2^-14 relative
-            # t error (kc.approx_ok is False in interpret mode).
-            # kc.fast_math opts closest-hit sweeps in too.
-            inv = pl.reciprocal(
-                den, approx=(any_hit or kc.fast_math) and kc.approx_ok)
-            tt = -num * inv
-            px = lox + tt * dx  # cluster-local hit point
-            py = loy + tt * dy
-            pz = loz + tt * dz
-            u = blk[4, k] * px + blk[5, k] * py + blk[6, k] * pz + blk[7, k]
-            v = blk[8, k] * px + blk[9, k] * py + blk[10, k] * pz + blk[11, k]
-            ok = (
-                ray_hit
-                & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
-                & (tt > t_min) & (tt < t)
-            )
-            t = jnp.where(ok, tt, t)
-            idx = jnp.where(ok, jnp.float32(1.0) * (c * CLUSTER + k), idx)
-            if attrs:
-                if smooth:
-                    # barycentric-interpolated shading normal from rows
-                    # 21-29 (s0, s1-s0, s2-s0 — accel/clusters.py row
-                    # map): 9 extra FMAs per test, same select count.
-                    # Normalization/facing happen downstream exactly as
-                    # for the flat (geometric) normal.
-                    cnx = blk[21, k] + u * blk[24, k] + v * blk[27, k]
-                    cny = blk[22, k] + u * blk[25, k] + v * blk[28, k]
-                    cnz = blk[23, k] + u * blk[26, k] + v * blk[29, k]
-                else:
-                    cnx, cny, cnz = nx, ny, nz
-                anx = jnp.where(ok, cnx, anx)
-                any_ = jnp.where(ok, cny, any_)
-                anz = jnp.where(ok, cnz, anz)
-                amat = jnp.where(ok, blk[12, k], amat)
-                aarea = jnp.where(ok, blk[13, k], aarea)
-                if uv:
-                    # barycentric-interpolated texture UV from rows 32-37
-                    # (uv0, uv1-uv0, uv2-uv0): 8 FMAs + 2 selects per test
-                    cu = blk[32, k] + u * blk[34, k] + v * blk[36, k]
-                    cv = blk[33, k] + u * blk[35, k] + v * blk[37, k]
-                    auu = jnp.where(ok, cu, auu)
-                    avv = jnp.where(ok, cv, avv)
-                if tan:
-                    # triangle-constant world texture-u tangent from the
-                    # (translation-invariant) barycentric gradient rows:
-                    # d(u_tex)/dp = du1*r1 + du2*r2 — scalar math, the
-                    # only vector cost is the 3 commit selects
-                    du1, du2 = blk[34, k], blk[36, k]
-                    atx = jnp.where(ok, du1 * blk[4, k] + du2 * blk[8, k],
-                                    atx)
-                    aty = jnp.where(ok, du1 * blk[5, k] + du2 * blk[9, k],
-                                    aty)
-                    atz = jnp.where(ok, du1 * blk[6, k] + du2 * blk[10, k],
-                                    atz)
-        if attrs:
-            attr = (anx, any_, anz, amat, aarea)
-            if uv:
-                attr += (auu, avv)
-            if tan:
-                attr += (atx, aty, atz)
-        return t, idx, attr
+        nx, ny, nz, nd = tri[0, j], tri[1, j], tri[2, j], tri[3, j]
+        den = nx * dx + ny * dy + nz * dz
+        num = nx * lox + ny * loy + nz * loz + nd
+        # No den==0 guard needed: IEEE semantics make every degenerate
+        # case a miss (tt = +/-inf or NaN fails tt>t_min / tt<t).
+        tt = -num * (1.0 / den)
+        px = lox + tt * dx  # cluster-local hit point
+        py = loy + tt * dy
+        pz = loz + tt * dz
+        u = tri[4, j] * px + tri[5, j] * py + tri[6, j] * pz + tri[7, j]
+        v = tri[8, j] * px + tri[9, j] * py + tri[10, j] * pz + tri[11, j]
+        ok = (
+            ray_hit
+            & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
+            & (tt > t_min) & (tt < t)
+        )
+        t = jnp.where(ok, tt, t)
+        idx = jnp.where(ok, j.astype(jnp.float32), idx)
+        if not attrs:
+            return (t, idx)
+        if smooth:
+            # barycentric-interpolated shading normal from rows 21-29
+            # (s0, s1-s0, s2-s0); normalization/facing happen downstream
+            cnx = tri[21, j] + u * tri[24, j] + v * tri[27, j]
+            cny = tri[22, j] + u * tri[25, j] + v * tri[28, j]
+            cnz = tri[23, j] + u * tri[26, j] + v * tri[29, j]
+        else:
+            cnx, cny, cnz = nx, ny, nz
+        new = (cnx, cny, cnz, tri[12, j], tri[13, j])
+        if uv:
+            # barycentric-interpolated texture UV from rows 32-37
+            new += (tri[32, j] + u * tri[34, j] + v * tri[36, j],
+                    tri[33, j] + u * tri[35, j] + v * tri[37, j])
+        if tan:
+            # triangle-constant world texture-u tangent from the
+            # (translation-invariant) barycentric gradient rows:
+            # d(u_tex)/dp = du1*r1 + du2*r2
+            du1, du2 = tri[34, j], tri[36, j]
+            new += tuple(du1 * tri[4 + a, j] + du2 * tri[8 + a, j]
+                         for a in range(3))
+        return (t, idx) + tuple(jnp.where(ok, nv, av)
+                                for nv, av in zip(new, carry[2:]))
 
-    def mt_cluster(c, ray_hit, t, idx, attr):
-        """Cluster c's triangle tests, gated per SUB_TRIS-triangle sub-box
-        AND per row group: incoherent tiles usually need only a couple of
-        the SUBS blocks, and at kc.groups>1 only the row groups whose rays
-        gate a block pay its test batch. Sub-boxes live in tri rows 14-19
-        at (static) lane `sub` of the already-loaded block."""
-        base = pl.multiple_of(c * CLUSTER, CLUSTER)
-        blk = kc.tri_ref[:, pl.ds(base, CLUSTER)]  # (ROWS, 128), lane-aligned
+    def mt_cluster(c, ray_hit, carry):
+        """Cluster c's triangle tests, gated per SUB_TRIS-triangle sub-box."""
+        base = c * CLUSTER
         # rebase the ray origin to the cluster's local frame once per
         # cluster (translation-invariant affine rows, see accel/clusters)
-        lo = tuple((ox[g] - blk[20, 0], oy[g] - blk[20, 1],
-                    oz[g] - blk[20, 2]) for g in gr)
-        t, idx, attr = list(t), list(idx), list(attr)
+        lo = (ox - tri[20, base], oy - tri[20, base + 1],
+              oz - tri[20, base + 2])
         for sub in range(SUBS):
-            for g in gr:
-                t_near, t_far = _slab_vals(
-                    blk[14, sub], blk[15, sub], blk[16, sub],
-                    blk[17, sub], blk[18, sub], blk[19, sub],
-                    ox[g], oy[g], oz[g], inv_dx[g], inv_dy[g], inv_dz[g])
-                sub_hit = (ray_hit[g] & (t_near <= t_far)
-                           & (t_far > t_min) & (t_near < t[g]))
+            t_near, t_far = _slab_vals(
+                tri[14, base + sub], tri[15, base + sub], tri[16, base + sub],
+                tri[17, base + sub], tri[18, base + sub], tri[19, base + sub],
+                ox, oy, oz, inv_dx, inv_dy, inv_dz)
+            sub_hit = (ray_hit & (t_near <= t_far) & (t_far > t_min)
+                       & (t_near < carry[0]))
+            lo_k = base + sub * SUB_TRIS
 
-                def hit_fn(a, _sub=sub, _sh=sub_hit, _g=g):
-                    tg, idxg, attrg = a[0], a[1], a[2:]
-                    tg, idxg, attrg = mt_sub(
-                        blk, lo[_g], c, _sub, _sh, tg, idxg, attrg,
-                        (dx[_g], dy[_g], dz[_g]))
-                    return (tg, idxg) + attrg
+            def tests(a, _sh=sub_hit, _lo=lo_k):
+                return lax.fori_loop(
+                    0, SUB_TRIS, lambda k, a: tri_test(_lo + k, lo, _sh, a), a)
 
-                res = lax.cond(jnp.any(sub_hit), hit_fn, lambda a: a,
-                               (t[g], idx[g]) + tuple(attr[g]))
-                t[g], idx[g], attr[g] = res[0], res[1], tuple(res[2:])
-        return tuple(t), tuple(idx), tuple(attr)
+            carry = lax.cond(any_true(sub_hit), tests, lambda a: a, carry)
+        return carry
 
-    def child(k, flat, *, s):
-        t, idx, attr = unpack(flat)
+    def child(k, carry, *, s):
         c = s * SUPER + k
-        ray_hit = []
-        for g in gr:
-            t_near, t_far = _slab(kc.boxes_ref, c, ox[g], oy[g], oz[g],
-                                  inv_dx[g], inv_dy[g], inv_dz[g])
-            rh = (t_near <= t_far) & (t_far > t_min) & (t_near < t[g])
-            if any_hit:
-                rh = rh & (idx[g] < 0.0)
-            ray_hit.append(rh)
-
-        def hit_fn(a):
-            t, idx, attr = unpack(a)
-            t, idx, attr = mt_cluster(c, tuple(ray_hit), t, idx, attr)
-            return pack(t, idx, attr)
-
-        return lax.cond(gor(ray_hit), hit_fn, lambda a: a, flat)
-
-    # per-tile visit-order selection (closest sweeps): pick the
-    # precomputed order whose reference origin is nearest the tile's mean
-    # live ray origin — a handful of scalar ops + 4 plane reductions
-    order_k = None
-    if kc.n_orders and not any_hit:
-        live_m = tuple((jnp.abs(ox[g]) < 1e17).astype(jnp.float32)
-                       for g in gr)
-        cnt = jnp.maximum(gsum(jnp.sum(m) for m in live_m), 1.0)
-        mx = gsum(jnp.sum(ox[g] * live_m[g]) for g in gr) / cnt
-        my = gsum(jnp.sum(oy[g] * live_m[g]) for g in gr) / cnt
-        mz = gsum(jnp.sum(oz[g] * live_m[g]) for g in gr) / cnt
-        best_d = jnp.float32(_INF)
-        order_k = jnp.int32(0)
-        for k in range(kc.n_orders):
-            ddx = kc.refs_ref[k, 0] - mx
-            ddy = kc.refs_ref[k, 1] - my
-            ddz = kc.refs_ref[k, 2] - mz
-            d2 = ddx * ddx + ddy * ddy + ddz * ddz
-            sel = d2 < best_d
-            best_d = jnp.where(sel, d2, best_d)
-            order_k = jnp.where(sel, jnp.int32(k), order_k)
+        t_near, t_far = _slab(kc.boxes_ref, c, ox, oy, oz,
+                              inv_dx, inv_dy, inv_dz)
+        ray_hit = (t_near <= t_far) & (t_far > t_min) & (t_near < carry[0])
+        if any_hit:
+            ray_hit = ray_hit & (carry[1] < 0.0)
+        return lax.cond(any_true(ray_hit),
+                        lambda a: mt_cluster(c, ray_hit, a), lambda a: a,
+                        carry)
 
     def cond(state):
-        si, live = state[0], state[1]
-        return (si < kc.n_super) & (live != 0.0)
+        go = state[0] < kc.n_super
+        if any_hit:  # early exit once every ray of the block is blocked
+            go = go & any_true(state[2] < 0.0)
+        return go
 
     def body(state):
-        si, live, flat = state[0], state[1], state[2:]
-        t, idx, _ = unpack(flat)
+        si, carry = state[0], state[1:]
         if kc.order_row is not None:
             s = kc.order_ref[kc.order_row, si]  # per-instance order row
-        elif order_k is None:
-            s = kc.order_ref[si]  # near-to-far visit order (perf hint only)
         else:
-            s = kc.orders_ref[order_k, si]
-        super_hit = []
-        for g in gr:
-            t_near, t_far = _slab(kc.sboxes_ref, s, ox[g], oy[g], oz[g],
-                                  inv_dx[g], inv_dy[g], inv_dz[g])
-            sh = (t_near <= t_far) & (t_far > t_min) & (t_near < t[g])
-            if any_hit:
-                sh = sh & (idx[g] < 0.0)
-            super_hit.append(sh)
-
-        flat = lax.cond(
-            gor(super_hit),
-            lambda a: lax.fori_loop(0, SUPER, functools.partial(child, s=s), a),
-            lambda a: a,
-            flat,
-        )
+            s = kc.order_ref[si]  # near-to-far visit order (perf hint only)
+        t_near, t_far = _slab(kc.sboxes_ref, s, ox, oy, oz,
+                              inv_dx, inv_dy, inv_dz)
+        super_hit = (t_near <= t_far) & (t_far > t_min) & (t_near < carry[0])
         if any_hit:
-            _, idx, _ = unpack(flat)
-            live = jnp.where(gor(tuple(ix < 0.0 for ix in idx)), 1.0, 0.0)
-        return (si + 1, live) + flat
+            super_hit = super_hit & (carry[1] < 0.0)
+        carry = lax.cond(
+            any_true(super_hit),
+            lambda a: lax.fori_loop(0, SUPER, functools.partial(child, s=s),
+                                    a),
+            lambda a: a,
+            carry,
+        )
+        return (si + 1,) + carry
 
-    state = lax.while_loop(
-        cond, body,
-        (jnp.int32(0), jnp.float32(1.0)) + pack(tg0, idx0, attr0),
-    )
-    t, idx, attr = unpack(state[2:])
-    cat = (lambda xs: xs[0]) if G == 1 else (lambda xs: jnp.concatenate(xs, 0))
-    if attrs:
-        out_attr = tuple(cat(tuple(attr[g][a] for g in gr))
-                         for a in range(n_attr))
-    else:
-        out_attr = ()
-    return cat(t), cat(idx), out_attr
+    state = lax.while_loop(cond, body, (jnp.int32(0), t0, idx0) + attr0)
+    return state[1], state[2], tuple(state[3:])
 
 
 def _cluster_kernel(order_ref, sboxes_ref, boxes_ref, tri_ref,
                     ox_ref, oy_ref, oz_ref, dx_ref, dy_ref, dz_ref,
-                    tmax_ref, *rest, n_super, t_min, any_hit, attrs,
-                    approx_ok=False, n_orders=0, groups=1, tan=False):
-    orders_ref = refs_ref = None
-    if n_orders:
-        orders_ref, refs_ref, *out_refs = rest
-    else:
-        out_refs = rest
-    uv = tri_ref.shape[0] >= ROWS_UV
-    out_u_ref = out_v_ref = None
-    out_tan_refs = None
-    if attrs and uv and tan:
-        (out_t_ref, out_idx_ref, out_nx_ref, out_ny_ref, out_nz_ref,
-         out_mat_ref, out_area_ref, out_u_ref, out_v_ref,
-         *out_tan_refs) = out_refs
-    elif attrs and uv:
-        (out_t_ref, out_idx_ref, out_nx_ref, out_ny_ref, out_nz_ref,
-         out_mat_ref, out_area_ref, out_u_ref, out_v_ref) = out_refs
-    elif attrs:
-        (out_t_ref, out_idx_ref, out_nx_ref, out_ny_ref, out_nz_ref,
-         out_mat_ref, out_area_ref) = out_refs
-    else:
-        out_t_ref, out_idx_ref = out_refs
+                    tmax_ref, *out_refs, n_super, t_min, any_hit, attrs,
+                    tan=False):
     kc = KernelClusters(order_ref, sboxes_ref, boxes_ref, tri_ref, n_super,
-                        approx_ok=approx_ok, orders_ref=orders_ref,
-                        refs_ref=refs_ref, n_orders=n_orders, groups=groups,
-                        emit_tan=tan and uv)
+                        emit_tan=tan)
     t, idx, attr = cluster_sweep(
         kc,
-        (ox_ref[:], oy_ref[:], oz_ref[:]),
-        (dx_ref[:], dy_ref[:], dz_ref[:]),
-        tmax_ref[:], t_min=t_min, any_hit=any_hit, attrs=attrs,
+        (ox_ref[...], oy_ref[...], oz_ref[...]),
+        (dx_ref[...], dy_ref[...], dz_ref[...]),
+        tmax_ref[...], t_min=t_min, any_hit=any_hit, attrs=attrs,
     )
-    out_t_ref[:] = jnp.where(idx >= 0.0, t, _INF)
-    out_idx_ref[:] = idx.astype(jnp.int32)
-    if attrs:
-        out_nx_ref[:] = attr[0]
-        out_ny_ref[:] = attr[1]
-        out_nz_ref[:] = attr[2]
-        out_mat_ref[:] = attr[3]
-        out_area_ref[:] = attr[4] * 0.5  # |cross|/2 = triangle area
-        if uv:
-            out_u_ref[:] = attr[5]
-            out_v_ref[:] = attr[6]
-        if out_tan_refs:
-            for a in range(3):
-                out_tan_refs[a][:] = attr[7 + a]
+    out_refs[0][...] = jnp.where(idx >= 0.0, t, _INF)
+    out_refs[1][...] = idx.astype(jnp.int32)
+    for a, ref in enumerate(out_refs[2:]):
+        # |n| row holds 2 * area
+        ref[...] = attr[a] * 0.5 if a == 4 else attr[a]
+
+
+def pad_rays(o_planes, d_planes, t_max, tile):
+    """Pad (H, W) ray planes up to whole (bh, bw) blocks with parked rays.
+    Returns (o, d, t_max planes, (bh, bw), (hp, wp))."""
+    h, w = o_planes[0].shape
+    bh = min(tile[0], 1 << max(h - 1, 0).bit_length())
+    bw = min(tile[1], 1 << max(w - 1, 0).bit_length())
+    hp, wp = cdiv(h, bh) * bh, cdiv(w, bw) * bw
+
+    def pad(x, fill):
+        x = jnp.broadcast_to(jnp.asarray(x, jnp.float32), (h, w))
+        if (hp, wp) == (h, w):
+            return x
+        return jnp.pad(x, ((0, hp - h), (0, wp - w)), constant_values=fill)
+
+    o = tuple(pad(p, _PARK_O) for p in o_planes)
+    d = tuple(pad(p, _PARK_D) for p in d_planes)
+    return o, d, pad(t_max, 0.0), (bh, bw), (hp, wp)
 
 
 @functools.partial(
     jax.jit,
-    static_argnames=("t_min", "any_hit", "tile", "interpret", "attrs",
-                     "groups", "tan"),
+    static_argnames=("t_min", "any_hit", "tile", "interpret", "attrs", "tan"),
 )
 def cluster_intersect(cs: ClusterSet, o_planes, d_planes, t_max,
-                      t_min=1e-3, any_hit=False, tile=(16, 256),
-                      interpret=None, attrs=False, order=None,
-                      orders=None, refs=None, groups=1, tan=False):
+                      t_min=1e-3, any_hit=False, tile=DEFAULT_TILE,
+                      interpret=None, attrs=False, order=None, tan=False):
     """Intersect an (H, W) ray-plane grid against a ClusterSet.
 
     Returns (t (H,W) — inf on miss, tri_idx (H,W) int32 — PADDED-REORDERED
     slot, -1 on miss; map back with cs.perm).
 
     attrs=True additionally returns (nx, ny, nz, mat, area): unnormalized
-    geometric normal (e1 x e2), material id (f32, from tri row 12) and
-    triangle area of the hit — selected in-kernel, so callers need no
-    post-kernel gathers. UV tables (cs.has_uv) append two more planes,
-    the barycentric-interpolated texture (u, v) of the hit.
+    normal (geometric, or interpolated shading normal for smooth tables),
+    material id (f32, from tri row 12) and triangle area of the hit. UV
+    tables (cs.has_uv) append the interpolated texture (u, v) planes, and
+    with tan=True the world texture-u tangent (tx, ty, tz).
 
     order: optional (S,) int32 SUPER-cluster visit order
     (accel.clusters.visit_order) — near-to-far ordering lets the running t
     cull far boxes; pure perf hint, results are order-independent.
 
-    orders/refs: optional (K, S) int32 visit-order table + (K, 4) f32
-    reference origins (accel.clusters.visit_orders) — each TILE then picks
-    the order whose reference is nearest its mean live ray origin (same
-    mechanism as the megakernel's per-tile orders; closest-hit sweeps
-    only). Overrides `order`. Pure perf hint; results order-independent.
-
-    groups=G > 1: row-group-gated test issue (bit-identical; see
-    KernelClusters.groups). tile_h must be divisible by G (else silently
-    runs ungrouped); tile_h // G >= 8 keeps each group vreg-aligned.
+    tile: (block_h, block_w) rays per program, powers of two.
     """
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
     h, w = o_planes[0].shape
-    from raytracing_engine_tpu.ops.pallas.common import pick_tile
-
-    tile_h, tile_w = pick_tile(h, w, *tile)
-    grid = (h // tile_h, w // tile_w)
-
-    n_orders = 0
-    if orders is not None and not any_hit:
-        n_orders = orders.shape[0]
+    o, d, tmax, (bh, bw), (hp, wp) = pad_rays(o_planes, d_planes, t_max, tile)
+    tan = tan and cs.has_uv
     kernel = functools.partial(
         _cluster_kernel,
         n_super=cs.num_super,
         t_min=t_min,
         any_hit=any_hit,
         attrs=attrs,
-        approx_ok=not interpret,
-        n_orders=n_orders,
-        groups=groups,
-        tan=tan and cs.has_uv,
+        tan=tan,
     )
-    blk = lambda: pl.BlockSpec((tile_h, tile_w), lambda i, j: (i, j),
-                               memory_space=pltpu.VMEM)
     if order is None:
         order = jnp.arange(cs.num_super, dtype=jnp.int32)
-    f32 = lambda: jax.ShapeDtypeStruct((h, w), jnp.float32)
-    out_shape = [f32(), jax.ShapeDtypeStruct((h, w), jnp.int32)]
-    if attrs:
-        out_shape += [f32(), f32(), f32(), f32(), f32()]
-        if cs.has_uv:  # interpolated texture-UV planes (rows 32-37)
-            out_shape += [f32(), f32()]
-            if tan:    # world texture-u tangent planes
-                out_shape += [f32(), f32(), f32()]
-    in_specs = [
-        pl.BlockSpec(memory_space=pltpu.SMEM),   # super visit order
-        pl.BlockSpec(memory_space=pltpu.SMEM),   # super boxes
-        pl.BlockSpec(memory_space=pltpu.SMEM),   # cluster boxes
-        pl.BlockSpec(memory_space=pltpu.VMEM),   # tri rows (ROWS, T_pad)
-        blk(), blk(), blk(), blk(), blk(), blk(), blk(),
-    ]
-    args = [order, cs.super_boxes, cs.boxes, cs.tri,
-            o_planes[0], o_planes[1], o_planes[2],
-            d_planes[0], d_planes[1], d_planes[2],
-            jnp.broadcast_to(jnp.asarray(t_max, jnp.float32), (h, w))]
-    if n_orders:
-        in_specs += [pl.BlockSpec(memory_space=pltpu.SMEM),   # order table
-                     pl.BlockSpec(memory_space=pltpu.SMEM)]   # refs
-        args += [orders, refs]
-    outs = pl.pallas_call(
+    n_out = 2 + (n_attr_planes(cs.tri.shape[0], tan) if attrs else 0)
+    out_shape = [jax.ShapeDtypeStruct((hp, wp), jnp.float32)
+                 for _ in range(n_out)]
+    out_shape[1] = jax.ShapeDtypeStruct((hp, wp), jnp.int32)
+    blk = block2d(bh, bw)
+    tabs = (order, cs.super_boxes, cs.boxes, cs.tri)
+    outs = triton_call(
         kernel,
         out_shape=tuple(out_shape),
-        grid=grid,
-        in_specs=in_specs,
-        out_specs=tuple(blk() for _ in out_shape),
-        interpret=interpret,
-    )(*args)
-    return outs if attrs else (outs[0], outs[1])
+        grid=(hp // bh, wp // bw),
+        in_specs=[whole(x.shape) for x in tabs] + [blk] * 7,
+        out_specs=tuple(blk for _ in out_shape),
+        interpret=resolve_interpret(interpret),
+        name="cluster_anyhit" if any_hit else "cluster_closest",
+    )(*tabs, *o, *d, tmax)
+    return tuple(x[:h, :w] for x in outs)

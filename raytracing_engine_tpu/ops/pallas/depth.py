@@ -1,20 +1,23 @@
 """Pallas depth kernel — one pyramid level of algorithm-3 cone marching.
 
-TPU-native re-design of reference shaders/compute.glsl:34-87:
+Block-local re-design of reference shaders/compute.glsl:34-87, which runs
+one thread per pixel in 8x8 workgroups, each thread marching until its own
+ray converges:
 
-- grid over (tile_h, tile_w) image tiles; each tile's march ``while_loop``
-  runs **in-kernel** until that tile's rays converge — unlike the whole-image
-  XLA while-loop (models/conemarch.py), a tile above empty sky exits in a few
-  iterations instead of being dragged along to the worst pixel of the frame.
-- ray state is component planes (f32 (tile_h, tile_w)); the <= MAX_OBJECTS
-  spheres are unrolled at compile time with scalar centers read from SMEM —
-  the lazy algorithm-3 cache becomes per-object bound planes + selects.
+- each Triton program owns one (block_h, block_w) block of pixels; the
+  march state lives in registers and the block's `while_loop` stops as soon
+  as all of its own pixels have converged — unlike the whole-image XLA loop
+  (models/conemarch.py), which iterates until the worst pixel of the frame
+  converges and writes the per-pixel state back to memory every iteration;
+- the <= MAX_OBJECTS spheres are unrolled at compile time, their centers
+  read once as scalars — the lazy algorithm-3 cache becomes per-object
+  bound planes + selects;
 - the coarse-to-fine seed (compute.glsl:79-82) arrives as a pre-upsampled
-  full-res seed image (the 2x-nearest upsample is a cheap XLA gather between
-  pallas calls), so the kernel is uniform across levels.
+  full-res seed image (the 2x-nearest upsample is a cheap XLA gather
+  between kernels), so the kernel is uniform across levels.
 
-The marched trajectories are identical to the golden/jnp paths, so parity
-tests compare pixelwise.
+Level sizes need not divide into blocks (1080p has 120x72 and 240x136
+levels): the wrapper pads the seed up to whole blocks and crops the result.
 """
 
 from __future__ import annotations
@@ -24,33 +27,54 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from raytracing_engine_tpu.config import MAX_OBJECTS, RenderConfig
 from raytracing_engine_tpu.ops.pallas.common import (
-    pick_tile,
+    any_true,
+    block2d,
+    cdiv,
+    dead_slot_mask,
+    pad_to,
     ray_dir_planes,
+    read_rows,
+    resolve_interpret,
+    sphere_sdf_plane,
     tile_pixel_planes,
-    unrolled_sdf_caches,
+    triton_call,
+    whole,
 )
 
 
-def _march_tile(ox, oy, oz, dx, dy, dz, threshold, obj_ref, obj_count,
-                render_dist, max_steps, n_obj=MAX_OBJECTS, masked=True):
-    """Algorithm-3 cone march on one tile; returns the marched-length plane.
-    n_obj/masked: static-object-count specialization (see depth_level_pallas)."""
+def block_dims(h: int, w: int, block_h: int, block_w: int):
+    """Power-of-two block no larger than the (power-of-two-rounded) image."""
+    bh = min(block_h, 1 << max(h - 1, 0).bit_length())
+    bw = min(block_w, 1 << max(w - 1, 0).bit_length())
+    return bh, bw
+
+
+def padded_dims(h: int, w: int, bh: int, bw: int):
+    return cdiv(h, bh) * bh, cdiv(w, bw) * bw
+
+
+def _march_tile(ox, oy, oz, dx, dy, dz, threshold, objs, obj_count,
+                render_dist, max_steps, masked=True):
+    """Algorithm-3 cone march on one block; returns the marched-length plane.
+
+    objs: list of (cx, cy, cz, radius) scalars, one per unrolled slot.
+    masked: mask slots >= obj_count (generic kernel); False when the caller
+    specialised the kernel to exactly the live slots."""
     big = jnp.float32(render_dist)
 
-    cache0 = unrolled_sdf_caches(ox, oy, oz, obj_ref, obj_count, big,
-                                 n_obj, masked)
+    live = dead_slot_mask(obj_count, big, masked)
+
+    cache0 = tuple(live(k, sphere_sdf_plane(ox, oy, oz, cx, cy, cz, cr))
+                   for k, (cx, cy, cz, cr) in enumerate(objs))
     zeros = jnp.zeros_like(ox)
-    # `done` is carried as an f32 0/1 plane — Mosaic cannot legalize i1
-    # vectors in while-loop carries
-    state0 = (zeros, zeros, zeros, jnp.int32(0), tuple(cache0))
+    state0 = (zeros, zeros, zeros, jnp.int32(0), cache0)
 
     def cond(state):
         length, last, done, it, cache = state
-        return (it < max_steps) & jnp.any((done == 0.0) & (length < big))
+        return (it < max_steps) & any_true((done == 0.0) & (length < big))
 
     def body(state):
         length, last, done, it, cache = state
@@ -63,18 +87,15 @@ def _march_tile(ox, oy, oz, dx, dy, dz, threshold, obj_ref, obj_count,
 
         dist = big
         new_cache = []
-        for k in range(n_obj):
+        for k, (cx, cy, cz, cr) in enumerate(objs):
             bound = cache[k] - last
             # re-evaluate the true SDF only where the 1-Lipschitz lower
             # bound dips to the cone radius — compute.glsl:51-57
-            cx, cy, cz, cr = obj_ref[k, 0], obj_ref[k, 1], obj_ref[k, 2], obj_ref[k, 3]
             ddx = px - cx
             ddy = py - cy
             ddz = pz - cz
             fresh = jnp.sqrt(ddx * ddx + ddy * ddy + ddz * ddz) - cr
-            upd = jnp.where(bound <= radius, fresh, bound)
-            if masked:
-                upd = jnp.where(k < obj_count, upd, big)
+            upd = live(k, jnp.where(bound <= radius, fresh, bound))
             new_cache.append(upd)
             dist = jnp.minimum(dist, upd)
 
@@ -95,44 +116,51 @@ def _march_tile(ox, oy, oz, dx, dy, dz, threshold, obj_ref, obj_count,
     return length
 
 
-def _depth_kernel(params_ref, count_ref, obj_ref, seed_ref, out_ref,
-                  *, tile_h, tile_w, render_dist, max_steps,
-                  n_obj=MAX_OBJECTS, masked=True):
-    px_cam = params_ref[0]
-    py_cam = params_ref[1]
-    pz_cam = params_ref[2]
+def block_rays(params_ref, block_h, block_w):
+    """Camera position, quaternion and per-pixel ray directions of this
+    program's block. params: [pos(3), quat(4), imageSize(2), ratio(2), ...]."""
+    cam = (params_ref[0], params_ref[1], params_ref[2])
     qx, qy, qz, qw = (params_ref[3], params_ref[4], params_ref[5], params_ref[6])
     img_sx, img_sy = params_ref[7], params_ref[8]
     ratio_x, ratio_y = params_ref[9], params_ref[10]
-    threshold = params_ref[11]
-    obj_count = count_ref[0]
-
-    i = pl.program_id(0)
-    j = pl.program_id(1)
     rows, cols = tile_pixel_planes(
-        (i * tile_h).astype(jnp.float32), (j * tile_w).astype(jnp.float32),
-        tile_h, tile_w,
-    )
-
+        (pl.program_id(0) * block_h).astype(jnp.float32),
+        (pl.program_id(1) * block_w).astype(jnp.float32), block_h, block_w)
     # normCoord = ((id*2+1)*imageSize - 1) * ratio — compute.glsl:71-72
     ncx = ((cols * 2.0 + 1.0) * img_sx - 1.0) * ratio_x
     ncy = ((rows * 2.0 + 1.0) * img_sy - 1.0) * ratio_y
-    dx, dy, dz = ray_dir_planes(ncx, ncy, qx, qy, qz, qw)
+    return cam, ray_dir_planes(ncx, ncy, qx, qy, qz, qw)
 
-    seed = seed_ref[:]
-    ox = px_cam + dx * seed
-    oy = py_cam + dy * seed
-    oz = pz_cam + dz * seed
 
+def _depth_kernel(params_ref, count_ref, obj_ref, seed_ref, out_ref,
+                  *, block_h, block_w, render_dist, max_steps,
+                  n_obj=MAX_OBJECTS, masked=True):
+    (cx, cy, cz), (dx, dy, dz) = block_rays(params_ref, block_h, block_w)
+    threshold = params_ref[11]
+    objs = read_rows(obj_ref, n_obj, 4)
+
+    seed = seed_ref[...]
     length = _march_tile(
-        ox, oy, oz, dx, dy, dz, threshold, obj_ref, obj_count,
-        render_dist, max_steps, n_obj, masked,
+        cx + dx * seed, cy + dy * seed, cz + dz * seed, dx, dy, dz,
+        threshold, objs, count_ref[0], render_dist, max_steps, masked,
     )
-    out_ref[:] = jnp.maximum(seed + length, 0.0)  # compute.glsl:86
+    out_ref[...] = jnp.maximum(seed + length, 0.0)  # compute.glsl:86
 
 
-def _interpret_default() -> bool:
-    return jax.default_backend() != "tpu"
+def scene_tables(cfg: RenderConfig, level: int, scene, cam_pos, cam_quat):
+    """(params (12,), counts (2,) int32, obj (MAX_OBJECTS, 4)) of a level."""
+    img_s = cfg.level_image_size(level)
+    params = jnp.concatenate([
+        jnp.asarray(cam_pos, jnp.float32),
+        jnp.asarray(cam_quat, jnp.float32),
+        jnp.array([img_s[0], img_s[1], cfg.ratio[0], cfg.ratio[1],
+                   cfg.level_threshold(level)], jnp.float32),
+    ])
+    counts = jnp.stack([scene.obj_count, scene.light_count]).astype(jnp.int32)
+    obj = jnp.concatenate(
+        [scene.obj_pos, scene.obj_radius[:, None]], axis=1
+    ).astype(jnp.float32)  # (MAX_OBJECTS, 4)
+    return params, counts, obj
 
 
 @functools.partial(
@@ -148,48 +176,32 @@ def depth_level_pallas(cfg: RenderConfig, level: int, scene, cam_pos, cam_quat,
     (host-side scenes always do), the kernel unrolls exactly that many
     spheres with no dead-slot masking; None keeps the generic masked kernel.
     """
-    if interpret is None:
-        interpret = _interpret_default()
     w, h = cfg.level_dims[level]
-    tile_h, tile_w = pick_tile(h, w, cfg.tile_h, cfg.tile_w)
-
-    img_s = cfg.level_image_size(level)
-    params = jnp.concatenate([
-        jnp.asarray(cam_pos, jnp.float32),
-        jnp.asarray(cam_quat, jnp.float32),
-        jnp.array([img_s[0], img_s[1], cfg.ratio[0], cfg.ratio[1],
-                   cfg.level_threshold(level)], jnp.float32),
-    ])
-    counts = scene.obj_count.reshape(1)
-    obj = jnp.concatenate(
-        [scene.obj_pos, scene.obj_radius[:, None]], axis=1
-    ).astype(jnp.float32)  # (MAX_OBJECTS, 4)
+    bh, bw = block_dims(h, w, cfg.tile_h, cfg.tile_w)
+    hp, wp = padded_dims(h, w, bh, bw)
+    params, counts, obj = scene_tables(cfg, level, scene, cam_pos, cam_quat)
 
     kernel = functools.partial(
         _depth_kernel,
-        tile_h=tile_h,
-        tile_w=tile_w,
+        block_h=bh,
+        block_w=bw,
         render_dist=cfg.render_dist,
         max_steps=cfg.max_march_steps,
         n_obj=MAX_OBJECTS if n_obj is None else n_obj,
         masked=n_obj is None,
     )
-    grid = (h // tile_h, w // tile_w)
-    return pl.pallas_call(
+    blk = block2d(bh, bw)
+    out = triton_call(
         kernel,
-        out_shape=jax.ShapeDtypeStruct((h, w), jnp.float32),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),  # params
-            pl.BlockSpec(memory_space=pltpu.SMEM),  # counts
-            pl.BlockSpec(memory_space=pltpu.SMEM),  # obj table
-            pl.BlockSpec((tile_h, tile_w), lambda i, j: (i, j),
-                         memory_space=pltpu.VMEM),  # seed
-        ],
-        out_specs=pl.BlockSpec((tile_h, tile_w), lambda i, j: (i, j),
-                               memory_space=pltpu.VMEM),
-        interpret=interpret,
-    )(params, counts, obj, seed)
+        out_shape=jax.ShapeDtypeStruct((hp, wp), jnp.float32),
+        grid=(hp // bh, wp // bw),
+        in_specs=[whole(params.shape), whole(counts.shape), whole(obj.shape),
+                  blk],
+        out_specs=blk,
+        interpret=resolve_interpret(interpret),
+        name=f"conemarch_depth_l{level}",
+    )(params, counts, obj, pad_to(seed, (hp, wp)))
+    return out[:h, :w]
 
 
 def upsample_seed(prev_depth, h: int, w: int):

@@ -1,11 +1,11 @@
 """Fused finest-depth + shade kernel.
 
-The finest pyramid level and the shading pass share the same tile, the same
-ray directions, and the same scene tables; running them as separate kernels
-costs a launch, a full-resolution depth round trip through HBM, and a
-duplicate ray-gen. This kernel marches the finest level from its seed and
-shades in-register — bitwise-identical output to the two-kernel pipeline
-(enforced by test), ~0.4 ms faster at 1080p.
+The finest pyramid level and the shading pass share the same block, the
+same ray directions, and the same scene tables; running them as separate
+kernels costs a launch, a full-resolution depth round trip through device
+memory, and a duplicate ray-gen. This kernel marches the finest level from
+its seed and shades in registers — the same output as the two-kernel
+pipeline (enforced by test).
 """
 
 from __future__ import annotations
@@ -15,56 +15,51 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from raytracing_engine_tpu.config import MAX_LIGHTS, MAX_OBJECTS, RenderConfig
 from raytracing_engine_tpu.ops.pallas.common import (
-    pick_tile,
-    ray_dir_planes,
-    tile_pixel_planes,
+    pad_to,
+    read_rows,
+    resolve_interpret,
+    triton_call,
+    whole,
 )
-from raytracing_engine_tpu.ops.pallas.depth import _march_tile
-from raytracing_engine_tpu.ops.pallas.shade import shade_tile_planes
+from raytracing_engine_tpu.ops.pallas.depth import (
+    _march_tile,
+    block_dims,
+    block_rays,
+    padded_dims,
+    scene_tables,
+)
+from raytracing_engine_tpu.ops.pallas.shade import (
+    planar_block,
+    shade_tables,
+    shade_tile_planes,
+)
 
 
 def _fused_kernel(params_ref, count_ref, obj_ref, mat_ref, light_ref,
-                  seed_ref, out_ref, *, tile_h, tile_w, render_dist,
+                  seed_ref, out_ref, *, block_h, block_w, render_dist,
                   max_march_steps, max_shadow_steps,
                   n_obj=MAX_OBJECTS, n_light=MAX_LIGHTS, masked=True):
-    cam_x, cam_y, cam_z = params_ref[0], params_ref[1], params_ref[2]
-    qx, qy, qz, qw = (params_ref[3], params_ref[4], params_ref[5], params_ref[6])
-    img_sx, img_sy = params_ref[7], params_ref[8]
-    ratio_x, ratio_y = params_ref[9], params_ref[10]
+    (cx, cy, cz), (dx, dy, dz) = block_rays(params_ref, block_h, block_w)
     threshold = params_ref[11]
     obj_count = count_ref[0]
-    light_count = count_ref[1]
-
-    i = pl.program_id(0)
-    j = pl.program_id(1)
-    rows, cols = tile_pixel_planes(
-        (i * tile_h).astype(jnp.float32), (j * tile_w).astype(jnp.float32),
-        tile_h, tile_w,
-    )
-    ncx = ((cols * 2.0 + 1.0) * img_sx - 1.0) * ratio_x
-    ncy = ((rows * 2.0 + 1.0) * img_sy - 1.0) * ratio_y
-    dx, dy, dz = ray_dir_planes(ncx, ncy, qx, qy, qz, qw)
+    objs = read_rows(obj_ref, n_obj, 4)
 
     # finest-level cone march — compute.glsl main()
-    seed = seed_ref[:]
-    ox = cam_x + dx * seed
-    oy = cam_y + dy * seed
-    oz = cam_z + dz * seed
+    seed = seed_ref[...]
     length = _march_tile(
-        ox, oy, oz, dx, dy, dz, threshold, obj_ref, obj_count,
-        render_dist, max_march_steps, n_obj, masked,
+        cx + dx * seed, cy + dy * seed, cz + dz * seed, dx, dy, dz,
+        threshold, objs, obj_count, render_dist, max_march_steps, masked,
     )
     depth = jnp.maximum(seed + length, 0.0)
 
-    # shading — fragment.glsl main(), in-register depth
+    # shading — fragment.glsl main(), depth stays in registers
     r, g, b = shade_tile_planes(
-        dx, dy, dz, depth, cam_x, cam_y, cam_z,
-        obj_ref, mat_ref, light_ref, obj_count, light_count,
-        render_dist, max_shadow_steps, n_obj, n_light, masked,
+        dx, dy, dz, depth, cx, cy, cz,
+        objs, read_rows(mat_ref, n_obj, 8), read_rows(light_ref, n_light, 8),
+        obj_count, count_ref[1], render_dist, max_shadow_steps, masked,
     )
     out_ref[0] = r
     out_ref[1] = g
@@ -77,44 +72,18 @@ def _fused_kernel(params_ref, count_ref, obj_ref, mat_ref, light_ref,
 def depth_shade_fused(cfg: RenderConfig, scene, cam_pos, cam_quat, seed,
                       interpret=None, n_obj=None, n_light=None):
     """March the finest level from `seed` and shade: (H, W, 3) float32."""
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
     h, w = cfg.height, cfg.width
-    tile_h, tile_w = pick_tile(h, w, cfg.tile_h, cfg.tile_w)
-    level = cfg.level_count - 1
-
-    img_s = cfg.level_image_size(level)
-    params = jnp.concatenate([
-        jnp.asarray(cam_pos, jnp.float32),
-        jnp.asarray(cam_quat, jnp.float32),
-        jnp.array([img_s[0], img_s[1], cfg.ratio[0], cfg.ratio[1],
-                   cfg.level_threshold(level)], jnp.float32),
-    ])
-    counts = jnp.stack([scene.obj_count, scene.light_count])
-    obj = jnp.concatenate(
-        [scene.obj_pos, scene.obj_radius[:, None]], axis=1
-    ).astype(jnp.float32)
-    mat = jnp.concatenate(
-        [
-            scene.mat_color,
-            scene.mat_diffuse[:, None],
-            scene.mat_specular[:, None],
-            scene.mat_shine[:, None],
-            scene.mat_ambient[:, None],
-            jnp.zeros((scene.mat_color.shape[0], 1), jnp.float32),
-        ],
-        axis=1,
-    )
-    zero = jnp.zeros((scene.light_pos.shape[0], 1), jnp.float32)
-    light = jnp.concatenate(
-        [scene.light_pos, zero, scene.light_color, zero], axis=1
-    )
+    bh, bw = block_dims(h, w, cfg.tile_h, cfg.tile_w)
+    hp, wp = padded_dims(h, w, bh, bw)
+    params, counts, obj = scene_tables(cfg, cfg.level_count - 1, scene,
+                                       cam_pos, cam_quat)
+    mat, light = shade_tables(scene)
 
     static = n_obj is not None and n_light is not None
     kernel = functools.partial(
         _fused_kernel,
-        tile_h=tile_h,
-        tile_w=tile_w,
+        block_h=bh,
+        block_w=bw,
         render_dist=cfg.render_dist,
         max_march_steps=cfg.max_march_steps,
         max_shadow_steps=cfg.max_shadow_steps,
@@ -122,22 +91,15 @@ def depth_shade_fused(cfg: RenderConfig, scene, cam_pos, cam_quat, seed,
         n_light=n_light if static else MAX_LIGHTS,
         masked=not static,
     )
-    grid = (h // tile_h, w // tile_w)
-    out = pl.pallas_call(
+    out = triton_call(
         kernel,
-        out_shape=jax.ShapeDtypeStruct((3, h, w), jnp.float32),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),  # params
-            pl.BlockSpec(memory_space=pltpu.SMEM),  # counts
-            pl.BlockSpec(memory_space=pltpu.SMEM),  # objects
-            pl.BlockSpec(memory_space=pltpu.SMEM),  # materials
-            pl.BlockSpec(memory_space=pltpu.SMEM),  # lights
-            pl.BlockSpec((tile_h, tile_w), lambda i, j: (i, j),
-                         memory_space=pltpu.VMEM),  # finest seed
-        ],
-        out_specs=pl.BlockSpec((3, tile_h, tile_w), lambda i, j: (0, i, j),
-                               memory_space=pltpu.VMEM),
-        interpret=interpret,
-    )(params, counts, obj, mat, light, seed)
-    return jnp.moveaxis(out, 0, -1)
+        out_shape=jax.ShapeDtypeStruct((3, hp, wp), jnp.float32),
+        grid=(hp // bh, wp // bw),
+        in_specs=[whole(params.shape), whole(counts.shape), whole(obj.shape),
+                  whole(mat.shape), whole(light.shape),
+                  pl.BlockSpec((bh, bw), lambda i, j: (i, j))],
+        out_specs=planar_block(bh, bw),
+        interpret=resolve_interpret(interpret),
+        name="conemarch_fused_depth_shade",
+    )(params, counts, obj, mat, light, pad_to(seed, (hp, wp)))
+    return jnp.moveaxis(out[:, :h, :w], 0, -1)

@@ -1,23 +1,21 @@
-"""Instanced cluster intersector — two-level acceleration, TPU-native.
+"""Instanced cluster intersector — two-level acceleration (Triton route).
 
 BASELINE config 5: N instances of one base mesh. The base mesh's ClusterSet
-(tables in VMEM) is shared; each instance is ~20 scalars in SMEM (world->
-object rotation rows, translation, uniform scale, world AABB).
-Per ray tile:
+tables are shared; each instance is ~20 scalars (world->object rotation
+rows, translation, uniform scale, world AABB). Per block of rays:
 
-  outer loop over instances:
-    - scalar world-AABB pre-cull (vector slab test, `lax.cond` skip)
-    - transform the tile's rays into object space (scalar-broadcast mults)
+  loop over instances (near-to-far order, any-hit early exit):
+    - world-AABB pre-cull (vector slab test, `lax.cond` skip)
+    - transform the block's rays into object space (scalar-broadcast mults)
     - the SAME hierarchical `cluster_sweep` as the single-mesh path
       (super -> cluster -> sub-box gates), bounded by the current
       best t (world units)
 
 The winning hit is encoded as instance * padded_tris + slot; with
-attrs=True the kernel also emits the WORLD-space geometric normal, so a
-shaded render needs no post-kernel gathers (instance material comes from
-code // padded_tris, a tiny select chain). VMEM holds one base mesh
-regardless of instance count — 1M+ effective triangles from a 70k-entry
-table.
+attrs=True the kernel also emits the WORLD-space normal (and UV / tangent
+planes for UV tables), so a shaded render needs no post-kernel gathers.
+Memory holds one base mesh regardless of instance count — 1M+ effective
+triangles from a 70k-entry table.
 """
 
 from __future__ import annotations
@@ -30,26 +28,32 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 from jax import lax
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from raytracing_engine_tpu.accel.clusters import ClusterSet
+from raytracing_engine_tpu.accel.clusters import ROWS_UV, ClusterSet
 from raytracing_engine_tpu.ops.pallas.cluster_intersect import (
+    DEFAULT_TILE,
     KernelClusters,
     _slab_vals,
     cluster_sweep,
+    pad_rays,
+)
+from raytracing_engine_tpu.ops.pallas.common import (
+    any_true,
+    block2d,
+    resolve_interpret,
+    triton_call,
+    whole,
 )
 
 _INF = np.float32(np.inf)
 
 
 def pack_instances(inst, mats=None):
-    """accel.instancing.InstancedMesh -> (inst_tab (N, 24) f32) for SMEM:
+    """accel.instancing.InstancedMesh -> (inst_tab (N, 24) f32):
     rows [inv_rot(9, row-major), trans(3), scale(1), world_bb_min(3),
     world_bb_max(3), mat(1), pads]. Column 19 carries the per-instance
-    material id (from `mats` or InstancedMesh.mat) so in-kernel consumers
-    (the instanced PT megakernel) can resolve materials with a static
-    select chain; host-side consumers may equally use code // padded_tris.
+    material id (from `mats` or InstancedMesh.mat); consumers resolve it
+    from the hit code as code // padded_tris.
     """
     n = inst.num_instances
     if mats is None:
@@ -74,21 +78,16 @@ def pack_instances(inst, mats=None):
 @dataclasses.dataclass(frozen=True)
 class KernelInstances:
     """In-kernel view of an instanced two-level scene: the shared base-mesh
-    KernelClusters plus the SMEM instance table. The wavefront trace core
-    accepts this as `bvh` so the FULL path-tracing bounce loop (NEE
-    included) runs in-kernel over instanced scenes — VERDICT round-2
-    item 2 (the reference shades everything it draws,
-    /root/reference/shaders/fragment.glsl:127-187)."""
-    inst_ref: Any     # SMEM (N, 24) f32 — see pack_instances
-    iorder_ref: Any   # SMEM (N,) int32 — instance visit order (perf hint)
+    KernelClusters plus the instance table."""
+    inst_ref: Any     # (N, 24) f32 — see pack_instances
+    iorder_ref: Any   # (N,) int32 — instance visit order (perf hint)
     kc: Any           # KernelClusters of the base mesh
     n_instances: int
     t_pad: int        # base ClusterSet padded_tris (hit-code stride)
-    # Optional SMEM (N, S) int32: per-instance SUPER visit order, row k =
-    # near-to-far from the camera TRANSFORMED INTO instance k's object
-    # space (the sweep runs in object space, where a single shared order
-    # is meaningless — identity order costs ~every super's children for
-    # near rays). Pure perf hint; results order-independent.
+    # (N, S) int32: per-instance SUPER visit order, row k = near-to-far
+    # from the camera TRANSFORMED INTO instance k's object space (the
+    # sweep runs in object space, where a single shared order is
+    # meaningless). Pure perf hint; results order-independent.
     iorders_ref: Any = None
 
 
@@ -102,8 +101,7 @@ def instanced_sweep(ki: KernelInstances, o, d, t0, *, t_min, any_hit=False,
     (nx, ny, nz) unnormalized WORLD-space geometric normal planes when
     attrs else () — plus interpolated texture-(u, v) planes for UV
     (ROWS_UV) base tables (UVs are object-space data: no transform).
-    Shared by the standalone pallas_call and the PT megakernel (same
-    body, two consumers — mirrors cluster_sweep)."""
+    """
     wox, woy, woz = o
     wdx, wdy, wdz = d
     winv_dx = 1.0 / wdx
@@ -118,8 +116,6 @@ def instanced_sweep(ki: KernelInstances, o, d, t0, *, t_min, any_hit=False,
         # early-exit once every real candidate is blocked (see
         # cluster_intersect.cluster_sweep); callers gate by candidacy
         code0 = jnp.where(jnp.abs(wox) >= 1e17, 0.0, code0)
-    from raytracing_engine_tpu.accel.clusters import ROWS_UV
-
     uv = ki.kc.tri_ref.shape[0] >= ROWS_UV  # static: base-table shape
     tan = uv and ki.kc.emit_tan             # static: tangent planes
     zero = jnp.zeros_like(wox)
@@ -127,7 +123,7 @@ def instanced_sweep(ki: KernelInstances, o, d, t0, *, t_min, any_hit=False,
     attr0 = tuple(zero for _ in range(n_attr)) if attrs else ()
 
     def body(ki_i, carry):
-        t_w, code, live, attr = carry[0], carry[1], carry[2], carry[3:]
+        t_w, code, attr = carry[0], carry[1], carry[2:]
         k = ki.iorder_ref[ki_i]  # near-to-far instance order (perf hint)
 
         # world AABB pre-cull for this instance
@@ -190,25 +186,22 @@ def instanced_sweep(ki: KernelInstances, o, d, t0, *, t_min, any_hit=False,
                              for nv, av in zip(new, attr))
             return (t_w, code) + attr
 
-        t_w, code, *attr = lax.cond(jnp.any(gate), inst_fn, lambda a: a,
-                                    (t_w, code) + tuple(attr))
-        if any_hit:
-            live = jnp.where(jnp.any(code < 0.0), 1.0, 0.0)
-        return (t_w, code, live) + tuple(attr)
+        return lax.cond(any_true(gate), inst_fn, lambda a: a,
+                        (t_w, code) + tuple(attr))
 
     def cond(carry):
-        return (carry[0] < ki.n_instances) & (carry[3] != 0.0)
+        go = carry[0] < ki.n_instances
+        if any_hit:  # early exit once every ray of the block is blocked
+            go = go & any_true(carry[2] < 0.0)
+        return go
 
     def wbody(carry):
         k = carry[0]
         out = body(k, carry[1:])
         return (k + 1,) + out
 
-    state = lax.while_loop(
-        cond, wbody,
-        (jnp.int32(0), t0, code0, jnp.float32(1.0)) + attr0,
-    )
-    return state[1], state[2], state[4:]
+    state = lax.while_loop(cond, wbody, (jnp.int32(0), t0, code0) + attr0)
+    return state[1], state[2], state[3:]
 
 
 def object_space_origins(inst_tab, origin):
@@ -219,51 +212,28 @@ def object_space_origins(inst_tab, origin):
     n = inst_tab.shape[0]
     inv = inst_tab[:, 0:9].reshape(n, 3, 3)
     rel = jnp.asarray(origin, jnp.float32)[None, :] - inst_tab[:, 9:12]
-    return jnp.einsum("nij,nj->ni", inv, rel) / inst_tab[:, 12:13]
+    return jnp.einsum("nij,nj->ni", inv, rel,
+                      precision=jax.lax.Precision.HIGHEST) / inst_tab[:, 12:13]
 
 
-def _instanced_kernel(inst_ref, iorder_ref, iorders_ref, order_ref,
-                      sboxes_ref, boxes_ref,
-                      tri_ref, ox_ref, oy_ref, oz_ref, dx_ref, dy_ref, dz_ref,
-                      tmax_ref, *out_refs, n_instances, n_super, t_pad, t_min,
-                      any_hit, attrs, approx_ok=False, tan=False):
-    from raytracing_engine_tpu.accel.clusters import ROWS_UV
-
-    uv = tri_ref.shape[0] >= ROWS_UV
-    out_u_ref = out_v_ref = None
-    out_tan_refs = None
-    if attrs and uv and tan:
-        (out_t_ref, out_idx_ref, out_nx_ref, out_ny_ref, out_nz_ref,
-         out_u_ref, out_v_ref, *out_tan_refs) = out_refs
-    elif attrs and uv:
-        (out_t_ref, out_idx_ref, out_nx_ref, out_ny_ref, out_nz_ref,
-         out_u_ref, out_v_ref) = out_refs
-    elif attrs:
-        out_t_ref, out_idx_ref, out_nx_ref, out_ny_ref, out_nz_ref = out_refs
-    else:
-        out_t_ref, out_idx_ref = out_refs
-    kc = KernelClusters(order_ref, sboxes_ref, boxes_ref, tri_ref, n_super,
-                        approx_ok=approx_ok, emit_tan=tan and uv)
+def _instanced_kernel(inst_ref, iorder_ref, iorders_ref, sboxes_ref,
+                      boxes_ref, tri_ref, ox_ref, oy_ref, oz_ref, dx_ref,
+                      dy_ref, dz_ref, tmax_ref, *out_refs, n_instances,
+                      n_super, t_pad, t_min, any_hit, attrs, tan=False):
+    kc = KernelClusters(iorders_ref, sboxes_ref, boxes_ref, tri_ref, n_super,
+                        emit_tan=tan)
     ki = KernelInstances(inst_ref, iorder_ref, kc, n_instances, t_pad,
                          iorders_ref=iorders_ref)
     t_w, code, attr = instanced_sweep(
         ki,
-        (ox_ref[:], oy_ref[:], oz_ref[:]),
-        (dx_ref[:], dy_ref[:], dz_ref[:]),
-        tmax_ref[:], t_min=t_min, any_hit=any_hit, attrs=attrs,
+        (ox_ref[...], oy_ref[...], oz_ref[...]),
+        (dx_ref[...], dy_ref[...], dz_ref[...]),
+        tmax_ref[...], t_min=t_min, any_hit=any_hit, attrs=attrs,
     )
-    out_t_ref[:] = jnp.where(code >= 0.0, t_w, _INF)
-    out_idx_ref[:] = code.astype(jnp.int32)
-    if attrs:
-        out_nx_ref[:] = attr[0]
-        out_ny_ref[:] = attr[1]
-        out_nz_ref[:] = attr[2]
-        if uv:
-            out_u_ref[:] = attr[3]
-            out_v_ref[:] = attr[4]
-        if out_tan_refs:
-            for a in range(3):
-                out_tan_refs[a][:] = attr[5 + a]
+    out_refs[0][...] = jnp.where(code >= 0.0, t_w, _INF)
+    out_refs[1][...] = code.astype(jnp.int32)
+    for a, ref in enumerate(out_refs[2:]):
+        ref[...] = attr[a]
 
 
 @functools.partial(
@@ -271,7 +241,7 @@ def _instanced_kernel(inst_ref, iorder_ref, iorders_ref, order_ref,
                               "attrs", "tan")
 )
 def instanced_cluster_intersect(inst_tab, cs: ClusterSet, o_planes, d_planes,
-                                t_min=1e-3, tile=(16, 256), interpret=None,
+                                t_min=1e-3, tile=DEFAULT_TILE, interpret=None,
                                 any_hit=False, attrs=False, t_max=_INF,
                                 origin=None, tan=False):
     """Closest hit (or any-hit occlusion) over all instances of the base
@@ -283,18 +253,15 @@ def instanced_cluster_intersect(inst_tab, cs: ClusterSet, o_planes, d_planes,
     farther instance AABBs (pure perf hint; results order-independent).
     Returns (t_world (H,W) — inf miss, code (H,W) int32 — instance *
     cs.padded_tris + slot, -1 miss); with attrs=True additionally
-    (nx, ny, nz) — unnormalized world-space geometric normal of the hit —
-    plus (u, v) interpolated texture-coordinate planes for UV base tables
-    (cs.has_uv).
+    (nx, ny, nz) — unnormalized world-space normal of the hit — plus (u, v)
+    interpolated texture-coordinate planes for UV base tables (cs.has_uv)
+    and, with tan=True, the world texture-u tangent.
     """
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
+    from raytracing_engine_tpu.accel.clusters import visit_orders
+
     h, w = o_planes[0].shape
-    from raytracing_engine_tpu.ops.pallas.common import pick_tile
-
-    tile_h, tile_w = pick_tile(h, w, *tile)
-    grid = (h // tile_h, w // tile_w)
-
+    o, d, tmax, (bh, bw), (hp, wp) = pad_rays(o_planes, d_planes, t_max, tile)
+    tan = tan and cs.has_uv
     kernel = functools.partial(
         _instanced_kernel,
         n_instances=inst_tab.shape[0],
@@ -303,26 +270,21 @@ def instanced_cluster_intersect(inst_tab, cs: ClusterSet, o_planes, d_planes,
         t_min=t_min,
         any_hit=any_hit,
         attrs=attrs,
-        approx_ok=not interpret,
-        tan=tan and cs.has_uv,
+        tan=tan,
     )
-    blk = lambda: pl.BlockSpec((tile_h, tile_w), lambda i, j: (i, j),
-                               memory_space=pltpu.VMEM)
-    f32 = lambda: jax.ShapeDtypeStruct((h, w), jnp.float32)
-    out_shape = [f32(), jax.ShapeDtypeStruct((h, w), jnp.int32)]
+    n_attr = 0
     if attrs:
-        out_shape += [f32(), f32(), f32()]
-        if cs.has_uv:  # interpolated texture-UV planes
-            out_shape += [f32(), f32()]
-            if tan:    # world texture-u tangent planes
-                out_shape += [f32(), f32(), f32()]
-    from raytracing_engine_tpu.accel.clusters import visit_orders
+        n_attr = 3 + (2 if cs.has_uv else 0) + (3 if tan else 0)
+    out_shape = [jax.ShapeDtypeStruct((hp, wp), jnp.float32)
+                 for _ in range(2 + n_attr)]
+    out_shape[1] = jax.ShapeDtypeStruct((hp, wp), jnp.int32)
 
-    order = jnp.arange(cs.num_super, dtype=jnp.int32)
+    n = inst_tab.shape[0]
     if origin is None:
-        iorder = jnp.arange(inst_tab.shape[0], dtype=jnp.int32)
-        iorders = jnp.broadcast_to(order[None, :],
-                                   (inst_tab.shape[0], cs.num_super))
+        iorder = jnp.arange(n, dtype=jnp.int32)
+        iorders = jnp.broadcast_to(
+            jnp.arange(cs.num_super, dtype=jnp.int32)[None, :],
+            (n, cs.num_super))
     else:
         center = (inst_tab[:, 13:16] + inst_tab[:, 16:19]) * 0.5
         delta = center - jnp.asarray(origin, jnp.float32)
@@ -330,24 +292,15 @@ def instanced_cluster_intersect(inst_tab, cs: ClusterSet, o_planes, d_planes,
         # per-instance OBJECT-space super orders (the sweep runs in object
         # space; identity order there forfeits near-to-far t-shrink)
         iorders = visit_orders(cs, object_space_origins(inst_tab, origin))
-    outs = pl.pallas_call(
+    tabs = (inst_tab, iorder, iorders, cs.super_boxes, cs.boxes, cs.tri)
+    blk = block2d(bh, bw)
+    outs = triton_call(
         kernel,
         out_shape=tuple(out_shape),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),  # instances
-            pl.BlockSpec(memory_space=pltpu.SMEM),  # instance visit order
-            pl.BlockSpec(memory_space=pltpu.SMEM),  # per-instance super orders
-            pl.BlockSpec(memory_space=pltpu.SMEM),  # super visit order
-            pl.BlockSpec(memory_space=pltpu.SMEM),  # super boxes
-            pl.BlockSpec(memory_space=pltpu.SMEM),  # cluster boxes
-            pl.BlockSpec(memory_space=pltpu.VMEM),  # tri rows
-            blk(), blk(), blk(), blk(), blk(), blk(), blk(),
-        ],
-        out_specs=tuple(blk() for _ in out_shape),
-        interpret=interpret,
-    )(inst_tab, iorder, iorders, order, cs.super_boxes, cs.boxes, cs.tri,
-      o_planes[0], o_planes[1], o_planes[2],
-      d_planes[0], d_planes[1], d_planes[2],
-      jnp.broadcast_to(jnp.asarray(t_max, jnp.float32), (h, w)))
-    return tuple(outs) if attrs else (outs[0], outs[1])
+        grid=(hp // bh, wp // bw),
+        in_specs=[whole(x.shape) for x in tabs] + [blk] * 7,
+        out_specs=tuple(blk for _ in out_shape),
+        interpret=resolve_interpret(interpret),
+        name="instanced_anyhit" if any_hit else "instanced_closest",
+    )(*tabs, *o, *d, tmax)
+    return tuple(x[:h, :w] for x in outs)

@@ -1,11 +1,12 @@
 """Pallas shading kernel — Phong + sphere-traced soft shadows.
 
-TPU-native re-design of reference shaders/fragment.glsl:127-187: a grid of
-image tiles; per tile, reconstruct the hit point from the finest depth level,
-pick the nearest object (materials paired by index — :148-156) with an
-unrolled argmin over scalar sphere params, then one in-kernel shadow march
-per light slot (:89-121, dead lights exit immediately via end=0). Output is
-planar (3, H, W) to keep RGB off the lane axis.
+Block-local re-design of reference shaders/fragment.glsl:127-187 (a
+per-pixel fragment shader): each program owns one block of pixels,
+reconstructs the hit point from the finest depth level, picks the nearest
+object (materials paired by index — :148-156) with an unrolled argmin over
+scalar sphere params, then runs one shadow march per light slot (:89-121,
+dead lights exit immediately via end=0) that stops when the block's own
+rays are done. Output is planar (3, H, W).
 """
 
 from __future__ import annotations
@@ -15,7 +16,6 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from raytracing_engine_tpu.config import (
     CAM_FALL_OFF,
@@ -26,28 +26,41 @@ from raytracing_engine_tpu.config import (
     RenderConfig,
 )
 from raytracing_engine_tpu.ops.pallas.common import (
-    pick_tile,
-    ray_dir_planes,
-    tile_pixel_planes,
-    unrolled_sdf_caches,
+    any_true,
+    dead_slot_mask,
+    pad_to,
+    read_rows,
+    resolve_interpret,
+    sphere_sdf_plane,
+    triton_call,
+    whole,
+)
+from raytracing_engine_tpu.ops.pallas.depth import (
+    block_dims,
+    block_rays,
+    padded_dims,
+    scene_tables,
 )
 
 
-def _shadow_march_tile(ox, oy, oz, dx, dy, dz, end, obj_ref, obj_count,
-                       render_dist, max_steps, n_obj=MAX_OBJECTS, masked=True):
-    """fragment.glsl:89-121 on planes; returns the soft-shadow factor."""
+def _shadow_march_tile(ox, oy, oz, dx, dy, dz, end, objs, obj_count,
+                       render_dist, max_steps, masked=True):
+    """fragment.glsl:89-121 on planes; returns the soft-shadow factor.
+    objs: list of (cx, cy, cz, radius) scalars (see depth._march_tile)."""
     big = jnp.float32(render_dist)
     ray_r = jnp.float32(RAY_RADIUS)
 
-    cache0 = unrolled_sdf_caches(ox, oy, oz, obj_ref, obj_count, big,
-                                 n_obj, masked)
+    live = dead_slot_mask(obj_count, big, masked)
+
+    cache0 = tuple(live(k, sphere_sdf_plane(ox, oy, oz, cx, cy, cz, cr))
+                   for k, (cx, cy, cz, cr) in enumerate(objs))
     zeros = jnp.zeros_like(ox)
-    # `occluded` carried as f32 0/1 — Mosaic cannot carry i1 vectors
-    state0 = (zeros, zeros, zeros + 1.0, zeros, jnp.int32(0), tuple(cache0))
+    # `occluded` carried as an f32 0/1 plane
+    state0 = (zeros, zeros, zeros + 1.0, zeros, jnp.int32(0), cache0)
 
     def cond(state):
         length, last, nearest, occluded, it, cache = state
-        return (it < max_steps) & jnp.any((occluded == 0.0) & (length < end))
+        return (it < max_steps) & any_true((occluded == 0.0) & (length < end))
 
     def body(state):
         length, last, nearest, occluded, it, cache = state
@@ -59,16 +72,13 @@ def _shadow_march_tile(ox, oy, oz, dx, dy, dz, end, obj_ref, obj_count,
 
         dist = end
         new_cache = []
-        for k in range(n_obj):
+        for k, (cx, cy, cz, cr) in enumerate(objs):
             bound = cache[k] - last
-            cx, cy, cz, cr = obj_ref[k, 0], obj_ref[k, 1], obj_ref[k, 2], obj_ref[k, 3]
             ddx = px - cx
             ddy = py - cy
             ddz = pz - cz
             fresh = jnp.sqrt(ddx * ddx + ddy * ddy + ddz * ddz) - cr
-            upd = jnp.where(bound <= nearest, fresh, bound)
-            if masked:
-                upd = jnp.where(k < obj_count, upd, big)
+            upd = live(k, jnp.where(bound <= nearest, fresh, bound))
             new_cache.append(upd)
             dist = jnp.minimum(dist, upd)
 
@@ -92,11 +102,12 @@ def _shadow_march_tile(ox, oy, oz, dx, dy, dz, end, obj_ref, obj_count,
 
 
 def shade_tile_planes(dx, dy, dz, depth, cam_x, cam_y, cam_z,
-                      obj_ref, mat_ref, light_ref, obj_count, light_count,
-                      render_dist, max_steps, n_obj, n_light, masked):
-    """Phong + soft-shadow shading of one tile given ray dirs and depth.
-    Returns (r, g, b) planes. Shared by the standalone shade kernel and the
-    fused finest-depth+shade kernel (ops/pallas/fused.py)."""
+                      objs, mats, lights, obj_count, light_count,
+                      render_dist, max_steps, masked):
+    """Phong + soft-shadow shading of one block given ray dirs and depth.
+    objs/mats/lights: per-slot scalar rows (read_rows). Returns (r, g, b)
+    planes. Shared by the standalone shade kernel and the fused
+    finest-depth+shade kernel (ops/pallas/fused.py)."""
     big = jnp.float32(render_dist)
     hit_mask = depth < big  # fragment.glsl:137-140
 
@@ -114,8 +125,7 @@ def shade_tile_planes(dx, dy, dz, depth, cam_x, cam_y, cam_z,
     m_b = jnp.zeros_like(depth)
     m_shine = jnp.zeros_like(depth)
     m_amb = jnp.zeros_like(depth)
-    for k in range(n_obj):
-        cx, cy, cz, cr = obj_ref[k, 0], obj_ref[k, 1], obj_ref[k, 2], obj_ref[k, 3]
+    for k, ((cx, cy, cz, cr), mat) in enumerate(zip(objs, mats)):
         ddx = px - cx
         ddy = py - cy
         ddz = pz - cz
@@ -125,11 +135,11 @@ def shade_tile_planes(dx, dy, dz, depth, cam_x, cam_y, cam_z,
         ox_b = jnp.where(take, cx, ox_b)
         oy_b = jnp.where(take, cy, oy_b)
         oz_b = jnp.where(take, cz, oz_b)
-        m_r = jnp.where(take, mat_ref[k, 0], m_r)
-        m_g = jnp.where(take, mat_ref[k, 1], m_g)
-        m_b = jnp.where(take, mat_ref[k, 2], m_b)
-        m_shine = jnp.where(take, mat_ref[k, 5], m_shine)
-        m_amb = jnp.where(take, mat_ref[k, 6], m_amb)
+        m_r = jnp.where(take, mat[0], m_r)
+        m_g = jnp.where(take, mat[1], m_g)
+        m_b = jnp.where(take, mat[2], m_b)
+        m_shine = jnp.where(take, mat[5], m_shine)
+        m_amb = jnp.where(take, mat[6], m_amb)
 
     # camera falloff — fragment.glsl:162-163
     cdx = px - cam_x
@@ -149,9 +159,7 @@ def shade_tile_planes(dx, dy, dz, depth, cam_x, cam_y, cam_z,
     col_r = jnp.zeros_like(depth)
     col_g = jnp.zeros_like(depth)
     col_b = jnp.zeros_like(depth)
-    for li in range(n_light):
-        lx, ly, lz = light_ref[li, 0], light_ref[li, 1], light_ref[li, 2]
-        lr, lg, lb = light_ref[li, 4], light_ref[li, 5], light_ref[li, 6]
+    for li, (lx, ly, lz, _, lr, lg, lb, _) in enumerate(lights):
         live = (li < light_count) if masked else True
 
         tlx = lx - px
@@ -164,8 +172,8 @@ def shade_tile_planes(dx, dy, dz, depth, cam_x, cam_y, cam_z,
         end = jnp.where(live & hit_mask, light_dist, 0.0)
         soft = _shadow_march_tile(
             px + ldx, py + ldy, pz + ldz,  # +1.0 offset — fragment.glsl:176
-            ldx, ldy, ldz, end, obj_ref, obj_count, render_dist, max_steps,
-            n_obj, masked,
+            ldx, ldy, ldz, end, objs, obj_count, render_dist, max_steps,
+            masked,
         )
         soft = jnp.minimum(soft, 1.0)
 
@@ -180,8 +188,9 @@ def shade_tile_planes(dx, dy, dz, depth, cam_x, cam_y, cam_z,
         spec = jnp.maximum(diffuse * jnp.power(base, m_shine), 0.0)
 
         ds = jnp.maximum(diffuse + spec, 0.0) / light_fall * soft
-        live_f = jnp.where(live, 1.0, 0.0) if masked else 1.0
-        scale = live_f / cam_fall * normal_fall
+        scale = 1.0 / cam_fall * normal_fall
+        if masked:
+            scale = jnp.where(live, scale, 0.0)
         col_r += (m_amb + ds * lr) * scale * m_r
         col_g += (m_amb + ds * lg) * scale * m_g
         col_b += (m_amb + ds * lb) * scale * m_b
@@ -191,34 +200,47 @@ def shade_tile_planes(dx, dy, dz, depth, cam_x, cam_y, cam_z,
             jnp.where(hit_mask, col_b, 0.0))
 
 
+def shade_tables(scene):
+    """(mat (MAX_MATERIALS, 8), light (MAX_LIGHTS, 8)) scalar tables.
+    mat row: [r, g, b, diffuse, specular, shine, ambient, pad];
+    light row: [px, py, pz, pad, r, g, b, pad]."""
+    mat = jnp.concatenate(
+        [
+            scene.mat_color,
+            scene.mat_diffuse[:, None],
+            scene.mat_specular[:, None],
+            scene.mat_shine[:, None],
+            scene.mat_ambient[:, None],
+            jnp.zeros((scene.mat_color.shape[0], 1), jnp.float32),
+        ],
+        axis=1,
+    ).astype(jnp.float32)
+    zero = jnp.zeros((scene.light_pos.shape[0], 1), jnp.float32)
+    light = jnp.concatenate(
+        [scene.light_pos, zero, scene.light_color, zero], axis=1
+    ).astype(jnp.float32)
+    return mat, light
+
+
 def _shade_kernel(params_ref, count_ref, obj_ref, mat_ref, light_ref,
-                  depth_ref, out_ref, *, tile_h, tile_w, render_dist,
+                  depth_ref, out_ref, *, block_h, block_w, render_dist,
                   max_steps, n_obj=MAX_OBJECTS, n_light=MAX_LIGHTS,
                   masked=True):
-    cam_x, cam_y, cam_z = params_ref[0], params_ref[1], params_ref[2]
-    qx, qy, qz, qw = (params_ref[3], params_ref[4], params_ref[5], params_ref[6])
-    img_sx, img_sy = params_ref[7], params_ref[8]
-    ratio_x, ratio_y = params_ref[9], params_ref[10]
-
-    i = pl.program_id(0)
-    j = pl.program_id(1)
-    rows, cols = tile_pixel_planes(
-        (i * tile_h).astype(jnp.float32), (j * tile_w).astype(jnp.float32),
-        tile_h, tile_w,
-    )
-    # fragCoord*2/view - 1 == ((2*id+1)*imageSize - 1) at the finest level
-    ncx = ((cols * 2.0 + 1.0) * img_sx - 1.0) * ratio_x
-    ncy = ((rows * 2.0 + 1.0) * img_sy - 1.0) * ratio_y
-    dx, dy, dz = ray_dir_planes(ncx, ncy, qx, qy, qz, qw)
-
+    (cx, cy, cz), (dx, dy, dz) = block_rays(params_ref, block_h, block_w)
     r, g, b = shade_tile_planes(
-        dx, dy, dz, depth_ref[:], cam_x, cam_y, cam_z,
-        obj_ref, mat_ref, light_ref, count_ref[0], count_ref[1],
-        render_dist, max_steps, n_obj, n_light, masked,
+        dx, dy, dz, depth_ref[...], cx, cy, cz,
+        read_rows(obj_ref, n_obj, 4), read_rows(mat_ref, n_obj, 8),
+        read_rows(light_ref, n_light, 8), count_ref[0], count_ref[1],
+        render_dist, max_steps, masked,
     )
     out_ref[0] = r
     out_ref[1] = g
     out_ref[2] = b
+
+
+def planar_block(bh: int, bw: int):
+    """(3, bh, bw) output block of a planar RGB image."""
+    return pl.BlockSpec((3, bh, bw), lambda i, j: (0, i, j))
 
 
 @functools.partial(jax.jit, static_argnames=("cfg", "interpret", "n_obj", "n_light"))
@@ -230,66 +252,33 @@ def shade_pallas(cfg: RenderConfig, scene, cam_pos, cam_quat, depth,
     live slots (no dead-slot masking, no dead shadow loops); None = generic
     masked kernel. Both must be given together for the unmasked path.
     """
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
     h, w = cfg.height, cfg.width
-    tile_h, tile_w = pick_tile(h, w, cfg.tile_h, cfg.tile_w)
-
-    img_s = cfg.level_image_size(cfg.level_count - 1)
-    params = jnp.concatenate([
-        jnp.asarray(cam_pos, jnp.float32),
-        jnp.asarray(cam_quat, jnp.float32),
-        jnp.array([img_s[0], img_s[1], cfg.ratio[0], cfg.ratio[1]], jnp.float32),
-    ])
-    counts = jnp.stack([scene.obj_count, scene.light_count])
-    obj = jnp.concatenate(
-        [scene.obj_pos, scene.obj_radius[:, None]], axis=1
-    ).astype(jnp.float32)
-    # mat row: [r, g, b, diffuse, specular, shine, ambient, pad]
-    mat = jnp.concatenate(
-        [
-            scene.mat_color,
-            scene.mat_diffuse[:, None],
-            scene.mat_specular[:, None],
-            scene.mat_shine[:, None],
-            scene.mat_ambient[:, None],
-            jnp.zeros((scene.mat_color.shape[0], 1), jnp.float32),
-        ],
-        axis=1,
-    )
-    # light row: [px, py, pz, pad, r, g, b, pad]
-    zero = jnp.zeros((scene.light_pos.shape[0], 1), jnp.float32)
-    light = jnp.concatenate(
-        [scene.light_pos, zero, scene.light_color, zero], axis=1
-    )
+    bh, bw = block_dims(h, w, cfg.tile_h, cfg.tile_w)
+    hp, wp = padded_dims(h, w, bh, bw)
+    params, counts, obj = scene_tables(cfg, cfg.level_count - 1, scene,
+                                       cam_pos, cam_quat)
+    mat, light = shade_tables(scene)
 
     static = n_obj is not None and n_light is not None
     kernel = functools.partial(
         _shade_kernel,
-        tile_h=tile_h,
-        tile_w=tile_w,
+        block_h=bh,
+        block_w=bw,
         render_dist=cfg.render_dist,
         max_steps=cfg.max_shadow_steps,
         n_obj=n_obj if static else MAX_OBJECTS,
         n_light=n_light if static else MAX_LIGHTS,
         masked=not static,
     )
-    grid = (h // tile_h, w // tile_w)
-    out = pl.pallas_call(
+    out = triton_call(
         kernel,
-        out_shape=jax.ShapeDtypeStruct((3, h, w), jnp.float32),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),  # params
-            pl.BlockSpec(memory_space=pltpu.SMEM),  # counts
-            pl.BlockSpec(memory_space=pltpu.SMEM),  # objects
-            pl.BlockSpec(memory_space=pltpu.SMEM),  # materials
-            pl.BlockSpec(memory_space=pltpu.SMEM),  # lights
-            pl.BlockSpec((tile_h, tile_w), lambda i, j: (i, j),
-                         memory_space=pltpu.VMEM),  # depth
-        ],
-        out_specs=pl.BlockSpec((3, tile_h, tile_w), lambda i, j: (0, i, j),
-                               memory_space=pltpu.VMEM),
-        interpret=interpret,
-    )(params, counts, obj, mat, light, depth)
-    return jnp.moveaxis(out, 0, -1)
+        out_shape=jax.ShapeDtypeStruct((3, hp, wp), jnp.float32),
+        grid=(hp // bh, wp // bw),
+        in_specs=[whole(params.shape), whole(counts.shape), whole(obj.shape),
+                  whole(mat.shape), whole(light.shape),
+                  pl.BlockSpec((bh, bw), lambda i, j: (i, j))],
+        out_specs=planar_block(bh, bw),
+        interpret=resolve_interpret(interpret),
+        name="conemarch_shade",
+    )(params, counts, obj, mat, light, pad_to(depth, (hp, wp)))
+    return jnp.moveaxis(out[:, :h, :w], 0, -1)

@@ -1,12 +1,11 @@
 """Counter-based PCG4D hash RNG (pure jnp — fuses into consumers).
 
-jax.random's threefry costs ~26 ms per path-trace pass worth of uniforms at
-800x608, and a separate Pallas hardware-PRNG kernel pays per-launch
-pipeline overhead. PCG4D (Jarzynski & Olano, JCGT 2020 — public domain
-construction) is ~12 int32 ops per value of pure elementwise work, so XLA
-fuses it straight into the consuming kernel: effectively free, identical on
-every backend, and high-quality enough for Monte-Carlo rendering (validated
-by the furnace/NEE cross-estimator tests, which hold for any healthy RNG).
+PCG4D (Jarzynski & Olano, JCGT 2020 — public domain construction) is ~12
+int32 ops per value of pure elementwise work, so XLA fuses it straight into
+the consuming kernel instead of materialising uniforms as jax.random's
+threefry does: identical on every backend, and high-quality enough for
+Monte-Carlo rendering (validated by the furnace/NEE cross-estimator tests,
+which hold for any healthy RNG).
 
 Stream layout: value = hash(pixel_x, pixel_y, draw_counter, seed) — fully
 counter-based, so any slice of the image draws the same numbers (tile
@@ -19,8 +18,7 @@ import jax
 import numpy as np
 import jax.numpy as jnp
 
-# numpy scalars (not jnp arrays): they trace as literals, so Pallas kernels
-# can close over them without 'captured constants' errors
+# numpy scalars (not jnp arrays): they trace as literals
 _M = np.uint32(1664525)
 _A = np.uint32(1013904223)
 
@@ -48,7 +46,7 @@ def pcg4d(x, y, z, w):
 
 def _to_unit(u):
     """uint32 -> float32 in [0, 1) via the 24-bit mantissa scale.
-    Mosaic can't cast uint32->f32; u>>8 < 2^24 is exact through int32."""
+    u>>8 < 2^24 is exact through int32, so the cast never rounds."""
     u24 = jax.lax.bitcast_convert_type(u >> np.uint32(8), jnp.int32)
     return u24.astype(jnp.float32) * np.float32(1.0 / (1 << 24))
 
@@ -61,8 +59,7 @@ def uniform_pcg(seed, ctr: jax.Array | int, n: int, h: int, w: int,
     distinct (seed, ctr) pairs give independent planes. Values are keyed by
     GLOBAL pixel coordinates (row0/col0 offset a window into the image), so
     any tiling/sharding of the image draws identical numbers — the property
-    that lets the Pallas megakernel, the XLA path and shard_map bands all
-    share one stream. Works inside Pallas kernels (pure elementwise jnp).
+    that lets the XLA path and shard_map bands share one stream. Works inside Pallas kernels (pure elementwise jnp).
     """
     px = jax.lax.broadcasted_iota(jnp.int32, (h, w), 1)
     py = jax.lax.broadcasted_iota(jnp.int32, (h, w), 0)
@@ -141,3 +138,12 @@ def uniform_pcg_coords(seed, ctr, n: int, px, py):
         o1, o2, o3, o4 = pcg4d(px, py, zz, ww)
         planes.extend([_to_unit(o1), _to_unit(o2), _to_unit(o3), _to_unit(o4)])
     return tuple(planes[:n])
+
+
+def key_to_seed(key) -> jnp.ndarray:
+    """Derive an int32 seed scalar from a jax PRNG key (any impl)."""
+    data = jax.random.key_data(key).astype(jnp.uint32).ravel()
+    s = jnp.uint32(0)
+    for i in range(data.shape[0]):
+        s = s ^ (data[i] * jnp.uint32(2654435761))
+    return jax.lax.bitcast_convert_type(s, jnp.int32)

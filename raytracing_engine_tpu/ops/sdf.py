@@ -1,7 +1,7 @@
 """Signed distance functions over the SoA sphere scene.
 
 Reference: ``sphereSDF(p, s) = distance(p, s.pos) - s.size``
-(shaders/utilities.glsl:36-38). On TPU we evaluate ALL object SDFs
+(shaders/utilities.glsl:36-38). Here we evaluate ALL object SDFs
 vectorized along the trailing object axis — with <= MAX_OBJECTS objects this
 beats the reference's per-thread lazy branching, while the march itself still
 carries the algorithm-3 cache (see ops/march.py) so trajectories match the

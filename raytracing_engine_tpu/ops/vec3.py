@@ -1,8 +1,8 @@
 """Component-plane vec3 helpers.
 
-TPU layout rule: keep the minor-most array axis big (it rides the 128 VPU
-lanes). A trailing (..., 3) axis wastes 125/128 lanes, so device code
-represents 3-vectors as tuples of (H, W)-shaped component planes. These
+Layout rule: device code represents 3-vectors as tuples of (H, W)-shaped
+component planes rather than trailing (..., 3) axes, so elementwise math
+fuses over dense planes. These
 helpers keep that code readable. A V3 is any 3-tuple of same-shape arrays.
 """
 

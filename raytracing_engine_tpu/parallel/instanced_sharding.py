@@ -5,9 +5,9 @@ rows (each device renders a horizontal band via
 models.instanced.render_instanced_phong's row0/band_h window), and the
 ``samples`` axis shards area-light shadow samples (each sample-device
 traces its own pcg-jittered light points; a psum averages visibility-
-weighted radiance). Scene tables (instance SMEM table + base-mesh
-ClusterSet) are replicated — VMEM holds one base mesh per device, exactly
-like the single-chip kernel.
+weighted radiance). Scene tables (instance table + base-mesh
+ClusterSet) are replicated — each device holds one base mesh, exactly
+like the single-device kernel.
 
 The camera projection and shadow-sample RNG are keyed on global pixel
 coordinates and global sample indices, so the sharded render computes

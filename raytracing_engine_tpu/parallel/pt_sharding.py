@@ -25,33 +25,16 @@ from raytracing_engine_tpu.pathtracer.integrator import PTConfig, trace_pass
 
 
 def render_pt_sharded(cfg: PTConfig, scene, cam_pos, cam_quat, spp: int,
-                      key, mesh, bvh=None, soa: bool = False,
-                      mega: bool = False, rebin=False, tile=(64, 256),
-                      spp_offset=0):
+                      key, mesh, bvh=None, soa: bool = False, spp_offset=0):
     """SPMD progressive pass over `mesh`. Returns ((H, W, 3) image, nrays).
-    soa=True uses the plane-layout wavefront integrator (production speed);
-    mega=True runs the Pallas megakernel per device band (its counter-based
-    pcg stream is tiling-invariant by construction, so sharded ==
-    unsharded bit-for-bit up to the psum); rebin=True (or a gap-mode
-    string, e.g. "none,morton") runs the per-bounce rebin engine — the
-    fastest single-chip mesh path — per device band, with the regroup
-    sort running PER SHARD: the estimator is unchanged because every RNG
-    draw is keyed on the carried global pixel coordinates
-    (tests/test_rebin.py), so where a ray is sorted to never changes its
-    arithmetic; the default uses the stacked reference integrator
-    (bit-matched tests).
+    soa=True uses the plane-layout wavefront integrator (production speed;
+    the same passes as render_pt_fast); the default uses the stacked
+    reference integrator (bit-matched tests).
 
     spp_offset: global pass index of this call's first pass — every pass's
     stream is keyed by its GLOBAL index, so chunked progressive renders
     (runtime.checkpoint.progressive_render(mesh=...)) accumulate the same
     sample set regardless of chunking or device count."""
-    if rebin:
-        return _render_pt_sharded_rebin(
-            cfg, scene, cam_pos, cam_quat, spp, key, mesh, bvh, tile,
-            spp_offset, rebin if isinstance(rebin, str) else "none,morton")
-    if mega:
-        return _render_pt_sharded_mega(cfg, scene, cam_pos, cam_quat, spp,
-                                       key, mesh, bvh, tile, spp_offset)
     if soa:
         from raytracing_engine_tpu.pathtracer.wavefront import trace_pass_soa
         pass_fn = trace_pass_soa
@@ -75,7 +58,7 @@ def render_pt_sharded(cfg: PTConfig, scene, cam_pos, cam_quat, spp: int,
             # sharded == unsharded bit-for-bit on the counter-based stream
             import numpy as _np
 
-            from raytracing_engine_tpu.ops.pallas.rng import key_to_seed
+            from raytracing_engine_tpu.ops.rng_pcg import key_to_seed
 
             base = key_to_seed(key)
 
@@ -109,100 +92,17 @@ def render_pt_sharded(cfg: PTConfig, scene, cam_pos, cam_quat, spp: int,
         nrays = lax.psum(nrays, TILE_AXIS)
         return acc, nrays
 
-    return jax.shard_map(
-        body,
-        mesh=mesh,
-        in_specs=(P(), P(), P(), P()),
-        out_specs=(P(TILE_AXIS, None, None), P()),
-    )(scene, cam_pos, cam_quat, key)
-
-
-def _render_pt_sharded_mega(cfg: PTConfig, scene, cam_pos, cam_quat,
-                            spp: int, key, mesh, bvh, tile, spp_offset=0):
-    """Megakernel per device band: tiles shard image rows, samples shard
-    spp (each sample-device renders its pass range via spp_offset)."""
-    import dataclasses
-
-    from raytracing_engine_tpu.ops.pallas.pt_kernel import render_pt_mega
-
-    if cfg.rng != "pcg":
-        cfg = dataclasses.replace(cfg, rng="pcg")
-    n_t = mesh.shape[TILE_AXIS]
-    n_s = mesh.shape[SAMPLE_AXIS]
-    if cfg.height % n_t:
-        raise ValueError(f"height {cfg.height} not divisible by tiles={n_t}")
-    if spp % n_s:
-        raise ValueError(f"spp {spp} not divisible by samples={n_s}")
-    band_h = cfg.height // n_t
-    local_spp = spp // n_s
-
-    def body(scene, cam_pos, cam_quat, key):
-        t = lax.axis_index(TILE_AXIS)
-        s = lax.axis_index(SAMPLE_AXIS)
-        img, nrays = render_pt_mega(
-            cfg, scene, cam_pos, cam_quat, local_spp, key,
-            spp_offset=spp_offset + s * local_spp,  # global pass indices
-            tile=tile, bvh=bvh,  # bvh: replicated closure
-            row0=t * band_h, band_h=band_h,
-        )
-        img = lax.psum(img * jnp.float32(local_spp / spp), SAMPLE_AXIS)
-        nrays = lax.psum(lax.psum(nrays, SAMPLE_AXIS), TILE_AXIS)
-        return img, nrays
+    from raytracing_engine_tpu.accel.clusters import ClusterSet
+    from raytracing_engine_tpu.accel.instancing import InstancedClusters
 
     return jax.shard_map(
         body,
         mesh=mesh,
         in_specs=(P(), P(), P(), P()),
         out_specs=(P(TILE_AXIS, None, None), P()),
-        # pallas_call out_shapes carry no vma annotation — skip the check
-        # (correctness is covered by the bit-identical sharded-vs-unsharded
-        # tests in tests/test_pt_sharding.py)
-        check_vma=False,
-    )(scene, cam_pos, cam_quat, key)
-
-
-def _render_pt_sharded_rebin(cfg: PTConfig, scene, cam_pos, cam_quat,
-                             spp: int, key, mesh, bvh, tile, spp_offset,
-                             modes: str):
-    """Rebin engine per device band: tiles shard image rows, samples shard
-    spp. The image-wide regroup sort becomes a per-band sort inside the
-    shard — coherence keys (Morton/octant) are computed over the band's
-    live rays only, which is a perf hint, not an estimator input."""
-    import dataclasses
-
-    from raytracing_engine_tpu.ops.pallas.pt_kernel import render_pt_rebin
-
-    if cfg.rng != "pcg":
-        cfg = dataclasses.replace(cfg, rng="pcg")
-    n_t = mesh.shape[TILE_AXIS]
-    n_s = mesh.shape[SAMPLE_AXIS]
-    if cfg.height % n_t:
-        raise ValueError(f"height {cfg.height} not divisible by tiles={n_t}")
-    if spp % n_s:
-        raise ValueError(f"spp {spp} not divisible by samples={n_s}")
-    band_h = cfg.height // n_t
-    local_spp = spp // n_s
-
-    def body(scene, cam_pos, cam_quat, key):
-        t = lax.axis_index(TILE_AXIS)
-        s = lax.axis_index(SAMPLE_AXIS)
-        img, nrays = render_pt_rebin(
-            cfg, scene, cam_pos, cam_quat, local_spp, key,
-            spp_offset=spp_offset + s * local_spp,  # global pass indices
-            tile=tile, bvh=bvh,  # bvh: replicated closure
-            row0=t * band_h, band_h=band_h, rebin=modes,
-        )
-        img = lax.psum(img * jnp.float32(local_spp / spp), SAMPLE_AXIS)
-        nrays = lax.psum(lax.psum(nrays, SAMPLE_AXIS), TILE_AXIS)
-        return img, nrays
-
-    return jax.shard_map(
-        body,
-        mesh=mesh,
-        in_specs=(P(), P(), P(), P()),
-        out_specs=(P(TILE_AXIS, None, None), P()),
-        # pallas_call out_shapes carry no vma annotation (same as mega)
-        check_vma=False,
+        # pallas_call out_shapes (the cluster kernels) carry no vma
+        # annotation; sharded == unsharded is covered by tests instead
+        check_vma=not isinstance(bvh, (ClusterSet, InstancedClusters)),
     )(scene, cam_pos, cam_quat, key)
 
 

@@ -1,7 +1,7 @@
 """Tile + sample sharding over a device mesh.
 
 The reference is single-GPU (one queue, src/main.rs:450-460); "scaling" in
-the TPU build is renderer-native SPMD (SURVEY.md §2.5): a 2D mesh
+this build is renderer-native SPMD (SURVEY.md §2.5): a 2D mesh
 (``tiles`` × ``samples``) where
 
 - the ``tiles`` axis shards image rows: every pyramid level is computed in

@@ -35,9 +35,3 @@ from raytracing_engine_tpu.pathtracer.temporal import (  # noqa: F401
     temporal_step,
 )
 
-
-def render_pt_mega(*args, **kwargs):
-    """Megakernel path tracer (lazy import — see ops/pallas/pt_kernel.py)."""
-    from raytracing_engine_tpu.ops.pallas.pt_kernel import render_pt_mega as f
-
-    return f(*args, **kwargs)

@@ -1,17 +1,13 @@
 """Wavefront ray compaction (sort-based, static shapes).
 
 The north-star wavefront architecture calls for "ray compaction between
-bounces so divergent paths stay dense". On a TPU there is no dynamic-shape
-free lunch: compaction is a stable key-sort that moves dead rays to the
-tail. The bounce stages still process all N lanes, so compaction pays only
-when a *later consumer* can exploit density — e.g. per-tile kernels whose
-while-loops early-exit on all-dead tiles, or (future) truncating work to
-the live prefix at a static budget.
-
-The production megakernel path (DESIGN.md §4) executes per tile in VMEM,
-where dead lanes cost idle lanes rather than HBM traffic, so compaction is
-OFF by default; this module provides the mechanism, proves it preserves the
-estimator exactly, and measures the sort cost honestly.
+bounces so divergent paths stay dense". With static shapes, compaction is a
+stable key-sort that moves dead rays to the tail. The bounce stages still
+process all N lanes, so compaction pays only when a *later consumer* can
+exploit density — e.g. per-block kernels whose loops early-exit on all-dead
+blocks, or (future) truncating work to the live prefix at a static budget.
+It is OFF by default; this module provides the mechanism and proves it
+preserves the estimator exactly.
 
 Everything here is permutation bookkeeping: ray state is flattened to
 (N, ...) arrays, sorted by aliveness (stable, so live-ray relative order —
@@ -63,9 +59,9 @@ def compacted_trace(cfg, scene, cam_pos, cam_quat, key, spp=1):
         raise ValueError(
             "compacted_trace is the power-sampling mechanism demo; "
             "light_sampling='tree' runs on the production paths "
-            "(render_pt_fast / render_pt_mega / render_pt)")
+            "(render_pt_fast / render_pt)")
 
-    from raytracing_engine_tpu.ops.pallas.rng import key_to_seed
+    from raytracing_engine_tpu.ops.rng_pcg import key_to_seed
     from raytracing_engine_tpu.ops.rng_pcg import uniform_pcg
     from raytracing_engine_tpu.pathtracer import wavefront as wf
 

@@ -8,7 +8,7 @@ luminance), then remodulated. This is the standard real-time pattern
 (render 1-8 spp, denoise) — Dammertz et al. 2010 "Edge-Avoiding À-Trous
 Wavelet Transform", the spatial core of SVGF.
 
-TPU-first shape: every pass is 25 statically-shifted multiply-adds over
+Shape: every pass is 25 statically-shifted multiply-adds over
 (H, W) planes — static shapes, no gathers, fully fusible by XLA; edge
 handling is clamp-to-edge padding. No reference analog (the reference
 presents raw frames); this is north-star production surface for the

@@ -3,9 +3,8 @@
 The bounce loop is a ``lax.fori_loop`` over static max_bounces; all per-ray
 state is component planes (H, W) — SoA ray buffers in HBM, stage barriers
 between intersect/shade exactly as in a wavefront tracer (the north star's
-architecture). Dead lanes are masked, not compacted (compaction on TPU is a
-sort + per-tile early-exit in the Pallas intersector — a later optimization;
-the estimator is already correct).
+architecture). Dead lanes are masked, not compacted (compaction is a sort —
+a later optimization; the estimator is already correct).
 
 Estimator: unidirectional path tracing, cosine-sampled Lambertian +
 perfect mirrors + smooth dielectrics, NEE toward power-weighted
@@ -101,9 +100,8 @@ class PTConfig:
     #   "threefry" — jax.random; portable, matches the reference integrator
     #                bit-for-bit (the default for reproducible tests)
     #   "pcg"      — counter-based PCG4D hash keyed by global pixel coords;
-    #                fuses into consumers, works inside Pallas kernels,
-    #                sharding/tiling-invariant (the production choice)
-    #   "pallas"   — TPU hardware PRNG planes (kept for comparison)
+    #                fuses into consumers, sharding/tiling-invariant (the
+    #                production choice)
     rng: str = "threefry"
     # atlas texture filtering: "nearest" (default — exact texel reads,
     # bit-identical to the pre-filtering program), "bilinear" (4-texel
@@ -459,12 +457,12 @@ def trace_pass(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, key, bvh=None,
         raise ValueError(
             "sampler='r2' is a production-path (rng='pcg') feature — the "
             "stacked reference integrator stays purely random as the "
-            "cross-check estimator; use render_pt_fast / render_pt_mega")
+            "cross-check estimator; use render_pt_fast")
     if cfg.tex_filter == "trilinear":
         raise ValueError(
             "tex_filter='trilinear' is a production-path feature (the mip "
             "LOD is execution-strategy state, not an estimator change) — "
-            "use render_pt_fast / render_pt_mega / render_pt_rebin; their "
+            "use render_pt_fast; its "
             "mutual bit-exactness is the trilinear cross-check")
     h, w = (band_h or cfg.height), cfg.width
 

@@ -56,7 +56,7 @@ LIGHT_MESH = 2   # pseudo-slot: the whole emissive mesh, one light
 _LUM = np.array([0.2126, 0.7152, 0.0722], np.float64)
 
 
-ATLAS_W = 128        # texels per atlas row = one TPU lane row
+ATLAS_W = 128        # texels per atlas row
 ATLAS_MAX_ROWS = 32  # in-kernel texture budget: 32 * 128 = 4096 texels
 
 
@@ -86,8 +86,8 @@ def pack_texture_atlas(images):
     images: sequence of (h, w, 3) float arrays, each w <= ATLAS_W. Returns
     (atlas (3K, ATLAS_W) f32 — channel-major rows, row c*K + k —
     and rects (N, 4) f32 = [x0, y0, w, h] texel rectangles). K is capped
-    at ATLAS_MAX_ROWS: the per-lane fetch is a K-row select chain in the
-    megakernel, so the budget bounds in-kernel texture cost.
+    at ATLAS_MAX_ROWS: the per-lane fetch is a K-row select chain, so the
+    budget bounds texture cost.
     """
     rects = np.zeros((len(images), 4), np.float32)
     x = y = shelf_h = 0
@@ -166,8 +166,8 @@ class PTScene:
     # Sampled per PASS: one area-weighted triangle per global pass index
     # (scalar), per-lane barycentric jitter — the marginal point pdf is
     # 1/(total_area * light_count), used consistently on both MIS sides,
-    # so the estimator stays unbiased; TPU-native because the per-pass
-    # row is a scalar table (SMEM) instead of a per-lane gather.
+    # so the estimator stays unbiased; the per-pass row is a scalar
+    # table instead of a per-lane gather.
     mesh_light_tri: jax.Array | None = None   # (E, 12): v0, e1, e2, Le
     mesh_light_cdf: jax.Array | None = None   # (E,) normalized area CDF
     mesh_light_area: jax.Array | None = None  # () total emissive area
@@ -206,10 +206,9 @@ class PTScene:
     # The atlas is (3K, 128) f32 — K rows of 128 texels per channel,
     # channel-major (row c*K + k) — and the per-lane texel fetch is a
     # lane-axis take_along_axis over a broadcast atlas row + a K-row
-    # select chain: Mosaic lowers dynamic lane gathers (verified on
-    # v5e), so ONE implementation serves the XLA integrators and the
-    # in-kernel megakernel bit-identically. K <= 32 keeps the fetch
-    # ~3*K vector ops (the in-kernel texture budget: 4096 texels).
+    # select chain, so ONE implementation serves both integrators
+    # bit-identically. K <= 32 keeps the fetch ~3*K vector ops (the
+    # texture budget: 4096 texels).
     mat_tex_space: jax.Array | None = None  # (M,) f32 — 1 = UV-space checker
     tex_atlas: jax.Array | None = None      # (3K, 128) f32 atlas rows
     mat_tex_rect: jax.Array | None = None   # (M, 4) f32 — x0, y0, w, h texels
@@ -247,7 +246,7 @@ class PTScene:
     # None = no dispersive materials anywhere (static; zero cost).
     mat_dispersion: jax.Array | None = None  # (M,) f32 — 0 = achromatic
     # two-level LIGHT TREE for many-light NEE (build_pt_scene
-    # light_tree=C, PTConfig.light_sampling="tree"): the TPU-native
+    # light_tree=C, PTConfig.light_sampling="tree"): the gather-free
     # answer to a pointer-chasing light BVH is a fixed two-level CDF —
     # C position-bounded clusters whose per-lane importance
     # w_c = power_c / max(dist(p, center_c)^2, radius_c^2) is pure
@@ -592,8 +591,8 @@ def build_pt_scene(
     dispersive = bool((mat_dispersion > 0).any())
     tex_atlas = mat_rect = nrm_rect = mat_mips = None
     if images or normals:
-        # albedo images and normal maps share ONE atlas (one VMEM table,
-        # one fetch implementation). tex_mips packs each albedo image's
+        # albedo images and normal maps share ONE atlas (one table, one
+        # fetch implementation). tex_mips packs each albedo image's
         # whole mip chain as extra rects in the same atlas; level 0 IS
         # the image, so mat_tex_rect (and every nearest/bilinear read)
         # is unchanged by mipping.
@@ -854,7 +853,7 @@ def build_pt_scene(
     )
 
 
-ENV_W = 128         # env-map texels per row = one TPU lane row
+ENV_W = 128         # env-map texels per row
 ENV_MAX_ROWS = 32   # polar rows budget (same fetch-chain bound as the atlas)
 MLT_MAX_ROWS = 32   # per-lane mesh-light budget: 32 * 128 = 4096 triangles
 
@@ -951,8 +950,7 @@ def mesh_light_rows(scene: PTScene, seed, gpass):
     One area-weighted emissive triangle is selected per GLOBAL pass index
     by a counter-based hash, so the selection is invariant to chunking,
     sharding and tile decomposition (same invariance contract as the pixel
-    RNG). The megakernel feeds the rows in as an SMEM scalar table; the
-    XLA paths compute a row per pass inline."""
+    RNG). The XLA paths compute a row per pass inline."""
     import jax.numpy as jnp  # noqa: F811 (kernel-safe local import style)
 
     from raytracing_engine_tpu.ops.rng_pcg import pcg4d, _to_unit

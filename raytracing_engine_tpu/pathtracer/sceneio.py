@@ -50,7 +50,7 @@ instead of code:
   `translate` post-transform vertices. Each mesh gets ONE material.
   `"smooth": true` shades the mesh with barycentric-interpolated vertex
   normals (the OBJ's `vn` records when present, else area-weighted
-  welded-vertex normals) — requires the cluster path (`--bvh` on TPU).
+  welded-vertex normals) — requires cluster tables (`--bvh`).
   `"uvs": true` loads the OBJ's `vt` per-corner texture coordinates
   (loud error if the file has none) for UV-space checkers / image
   textures on the mesh.

@@ -104,3 +104,20 @@ def material_spheres():
         ((0.0, 5.0, 3.0), 0.8, 3),        # emissive "sun"
     ]
     return build_pt_scene(spheres=spheres, materials=mats)
+
+
+def mesh_lit_scene(mesh):
+    """A triangle mesh (material 0, diffuse) lit by one emissive sphere over
+    a large diffuse ground sphere — the `cli pt --scene knot/obj` scene
+    (BASELINE config 3 with the torus knot). Camera: origin, looking +Y."""
+    mats = [
+        {"albedo": (0.7, 0.6, 0.4), "kind": DIFFUSE},
+        {"albedo": (0, 0, 0), "emission": (10.0, 10.0, 10.0), "kind": DIFFUSE},
+        {"albedo": (0.5, 0.5, 0.6), "kind": DIFFUSE},
+    ]
+    return build_pt_scene(
+        spheres=[((6.0, 4.0, 6.0), 1.5, 1), ((0.0, 8.0, -103.0), 100.0, 2)],
+        triangles=mesh,
+        tri_mats=np.zeros(mesh.shape[0], np.int32),
+        materials=mats,
+    )

@@ -1,4 +1,4 @@
-"""SoA wavefront path tracer — the TPU-fast integrator.
+"""SoA wavefront path tracer — the production integrator.
 
 Same estimator as pathtracer/integrator.py (NEE + power-heuristic MIS
 with power-weighted light selection; Lambertian / mirror / dielectric
@@ -6,8 +6,8 @@ materials, checker textures, env lights, fog, DOF camera, optional
 Russian roulette) and the SAME RNG stream (identical keys/shapes/
 slicing), but every per-ray quantity is a component plane (H, W) and
 every <= 8-slot scene table is unrolled into scalar selects — no
-(..., 3) or (..., K) trailing axes anywhere on the hot path, so the
-whole bounce loop is lane-dense VPU work. This is the production path;
+(..., 3) or (..., K) trailing axes anywhere on the hot path, so XLA
+fuses the bounce loop into elementwise kernels. This is the production path;
 the stacked-layout integrator remains the readable cross-check
 reference. Optional features are STATICALLY gated on config fields /
 pytree None-ness, so a scene not using one compiles the exact program
@@ -66,7 +66,6 @@ def _camera_rays(cfg: PTConfig, cam_pos, cam_quat, u1, u2, row0=0, col0=0,
     if coords is not None:  # explicit global pixel-coordinate planes
         iy, ix = (coords[0].astype(jnp.float32), coords[1].astype(jnp.float32))
     else:
-        # 2D int32 iota then cast — Mosaic needs >=2D integer iota
         ix = jax.lax.broadcasted_iota(jnp.int32, (bh, bw), 1).astype(jnp.float32) + col0
         iy = jax.lax.broadcasted_iota(jnp.int32, (bh, bw), 0).astype(jnp.float32) + row0
     ncx = ((ix + u1) * 2.0 / cfg.width - 1.0) * cfg.ratio[0]
@@ -163,122 +162,15 @@ def _mean_live_origin(o):
     return jnp.stack([jnp.sum(jnp.where(live, c, 0.0)) / n for c in o])
 
 
-def _use_packet(packet):
-    """Skip-link packet traversal is opt-in ONLY: its leaf loads index the
-    lane axis dynamically, which Mosaic cannot lower — on a real TPU the
-    kernel fails to compile (it runs in interpret mode on CPU). The safe
-    default for a raw BVH is the XLA gather traversal; the production TPU
-    path is a ClusterSet (convert with accel.clusters.build_clusters)."""
-    if packet is None:
-        return False
-    return packet
-
-
-def _intersect_clusters(scene: PTScene, o, d, t_min, cs):
-    """Gather-free cluster intersection (attrs-emitting sweep).
-
-    For an in-kernel `KernelClusters` view (the megakernel) this is THE
-    path — gathers don't exist inside a Pallas kernel. For a host-side
-    ClusterSet it was MEASURED SLOWER than the gather path on v5e
-    (558 vs 457 ms at 512^2: +5 selects per triangle test outweigh the 8
-    removed per-bounce gathers), so _intersect does NOT route ClusterSets
-    here. Material ids come from the ClusterSet's tri row 12
-    (build_clusters(..., tri_mats=...)); a set built without mats yields
-    material 0 for every triangle."""
-    from raytracing_engine_tpu.ops.pallas.cluster_intersect import (
-        KernelClusters,
-        cluster_intersect,
-        cluster_sweep,
-    )
-
-    t_s, i_s = _sphere_hits(scene, o, d, t_min)
-    cuu = cvv = ctan = None
-    if isinstance(cs, KernelClusters):
-        big = jnp.full_like(o[0], BIG)
-        t_t, sidx_f, attr = cluster_sweep(cs, o, d, big, t_min=t_min,
-                                          attrs=True)
-        if len(attr) == 10:  # UV + tangent planes (kc.emit_tan)
-            cnx, cny, cnz, cmat, carea, cuu, cvv = attr[:7]
-            ctan = attr[7:10]
-        elif len(attr) == 7:  # UV table: trailing interpolated-(u, v)
-            cnx, cny, cnz, cmat, carea, cuu, cvv = attr
-        else:
-            cnx, cny, cnz, cmat, carea = attr
-        carea = carea * 0.5
-        sidx = sidx_f.astype(jnp.int32)
-    else:
-        res = cluster_intersect(cs, o, d, BIG, t_min=t_min, attrs=True,
-                                tan=scene.needs_tan)
-        t_t, sidx, cnx, cny, cnz, cmat, carea = res[:7]
-        if len(res) >= 9:
-            cuu, cvv = res[7], res[8]
-        if len(res) == 12:
-            ctan = res[9:12]
-    t_t = jnp.where(sidx >= 0, t_t, BIG)
-
-    use_tri = t_t < t_s
-    t = jnp.minimum(t_s, t_t)
-    hit = t < BIG
-    p = v3.add(o, v3.scale(d, t))
-
-    S = scene.sph_pos.shape[0]
-    si = jnp.maximum(i_s, 0)
-    scx = _sel(si, scene.sph_pos[:, 0], S)
-    scy = _sel(si, scene.sph_pos[:, 1], S)
-    scz = _sel(si, scene.sph_pos[:, 2], S)
-    n_sph = (p[0] - scx, p[1] - scy, p[2] - scz)
-    n = v3.where(use_tri, (cnx, cny, cnz), n_sph)
-    nlen = jnp.maximum(v3.length(n), 1e-20)
-    n = v3.scale(n, 1.0 / nlen)
-    flip = v3.dot(n, d) > 0.0
-    n = v3.where(flip, v3.neg(n), n)  # two-sided; `front` = geometric side
-
-    sph_mat = _sel(si, scene.sph_mat, S)
-    mat_id = jnp.where(use_tri, cmat.astype(jnp.int32), sph_mat)
-
-    sr = _sel(si, scene.sph_radius, S)
-    sph_area = 4.0 * _PI * sr * sr
-    light_area = jnp.where(use_tri, carea, sph_area)
-
-    out = dict(t=t, hit=hit, p=p, n=n, mat_id=mat_id, light_area=light_area,
-               is_tri=use_tri, front=~flip)
-    if scene.has_light_tree:
-        if isinstance(cs, KernelClusters):
-            # In-kernel the original slot is unrecoverable (padded-
-            # reordered index, no gathers); -1 = "not a slot light".
-            # _trace_core REJECTS tree + tri slot lights over this path,
-            # so -1 is only ever reached for non-light triangles here.
-            prim_tri = jnp.full_like(si, -1)
-        else:
-            # host path: map the padded-reordered hit slot back to the
-            # ORIGINAL triangle index so the hit-side MIS (prim, kind)
-            # match finds slot lights (XLA gather, outside any kernel)
-            prim_tri = jnp.take(cs.perm, jnp.maximum(sidx, 0), axis=0)
-            prim_tri = jnp.where(sidx >= 0, prim_tri, -1)
-        out["prim"] = jnp.where(use_tri, prim_tri, si)
-    if scene.needs_uv:  # static: UV-free scenes compile the prior program
-        su, sv = _sphere_uv(n_sph)
-        if cuu is None:
-            cuu = cvv = jnp.zeros_like(t)
-        out["uv"] = (jnp.where(use_tri, cuu, su),
-                     jnp.where(use_tri, cvv, sv))
-    if scene.needs_tan:  # static: raw texture-u tangent plane triple
-        if ctan is None:
-            ctan = (jnp.zeros_like(t),) * 3
-        out["tan"] = v3.where(use_tri, ctan, _sphere_tan(n_sph))
-    return out
-
-
-def _tri_hits(scene: PTScene, o, d, t_min, bvh, packet=None):
+def _tri_hits(scene: PTScene, o, d, t_min, bvh):
     """(t, original tri index, n V3 unnormalized, 2*area, uv) of the
     nearest triangle hit. uv is the interpolated texture-(u, v) pair when
     the ClusterSet carries UV rows, else None (callers fall back to
     scene.tri_uv or zeros).
 
-    `bvh` may be an accel.bvh.BVH (skip-link traversal: packet kernel in
-    interpret mode / gather fallback) or an accel.clusters.ClusterSet (the
-    production TPU path — dense cluster culling; normal and area are
-    direct row gathers from the Baldwin–Weber table, no cross product).
+    `bvh` may be an accel.bvh.BVH (skip-link traversal in XLA) or an
+    accel.clusters.ClusterSet (the Triton cluster kernel; normal and area
+    are direct row gathers from the Baldwin–Weber table, no cross product).
     """
     from raytracing_engine_tpu.accel.clusters import ClusterSet
 
@@ -294,20 +186,8 @@ def _tri_hits(scene: PTScene, o, d, t_min, bvh, packet=None):
         # near-to-far visit order from the mean ray origin (perf hint);
         # parked dead rays (origin ~1e18) are excluded from the mean
         mean_o = _mean_live_origin(o)
-        kw = {}
-        if cs.order_refs is not None and cs.order_refs.shape[0] > 0:
-            # per-TILE order selection (same mechanism as the megakernel):
-            # row 0 = the image-wide mean origin (camera tiles pick it),
-            # rows 1+ = mesh farthest-point refs for bounce tiles
-            from raytracing_engine_tpu.accel.clusters import visit_orders
-
-            refs = jnp.concatenate([mean_o[None, :], cs.order_refs], axis=0)
-            kw = dict(orders=visit_orders(cs, refs),
-                      refs=jnp.concatenate(
-                          [refs, jnp.zeros((refs.shape[0], 1), jnp.float32)],
-                          axis=1))
         t, sidx = cluster_intersect(cs, o, d, BIG, t_min=t_min,
-                                    order=visit_order(cs, mean_o), **kw)
+                                    order=visit_order(cs, mean_o))
         safe = jnp.maximum(sidx, 0)
         idx = jnp.maximum(cs.perm[safe], 0)
         n = (cs.tri[0, safe], cs.tri[1, safe], cs.tri[2, safe])
@@ -346,21 +226,10 @@ def _tri_hits(scene: PTScene, o, d, t_min, bvh, packet=None):
                                  for a in range(3))
         return jnp.where(sidx >= 0, t, BIG), idx, n, nlen2, tuv, ttan
     if bvh is not None:
-        if _use_packet(packet):
-            from raytracing_engine_tpu.ops.pallas.bvh_traverse import (
-                bvh_intersect_packet,
-                pack_bvh_tables,
-            )
+        from raytracing_engine_tpu.accel.bvh import bvh_intersect
 
-            tables = pack_bvh_tables(bvh)
-            t, ridx = bvh_intersect_packet(
-                tables, o, d, jnp.full_like(o[0], BIG), t_min=t_min
-            )
-        else:
-            from raytracing_engine_tpu.accel.bvh import bvh_intersect
-
-            t, ridx, _, _ = bvh_intersect(bvh, v3.stack(o), v3.stack(d),
-                                          t_min=t_min)
+        t, ridx, _, _ = bvh_intersect(bvh, v3.stack(o), v3.stack(d),
+                                      t_min=t_min)
         safe = jnp.maximum(ridx, 0)
         idx = bvh.perm[safe]
         e1 = v3.unstack(bvh.e1[safe])
@@ -397,51 +266,30 @@ def _tri_hits(scene: PTScene, o, d, t_min, bvh, packet=None):
 def _intersect_instanced(scene: PTScene, o, d, t_min, bvh):
     """Two-level (instanced) closest hit for the PT bounce loop.
 
-    bvh: a KernelInstances (in-kernel) or accel.instancing.InstancedClusters
-    (XLA path — one pallas launch per bounce). Materials are PER INSTANCE
+    bvh: an accel.instancing.InstancedClusters (one Triton instanced-sweep
+    launch per bounce). Materials are PER INSTANCE
     (inst table col 19). Emissive instanced materials are NOT supported
     (no NEE entry / MIS pdf for them — make_instanced_clusters refuses);
     area lights in instanced scenes are emissive spheres or unrolled-slot
     triangles, so light_area for mesh hits is never read and stays 1."""
     from raytracing_engine_tpu.ops.pallas.instanced_intersect import (
-        KernelInstances,
         instanced_cluster_intersect,
-        instanced_sweep,
     )
 
     t_s, i_s = _sphere_hits(scene, o, d, t_min)
     cuu = cvv = ctan = None
-    if isinstance(bvh, KernelInstances):
-        big = jnp.full_like(o[0], BIG)
-        t_w, code, attr = instanced_sweep(bvh, o, d, big, t_min=t_min,
-                                          attrs=True)
-        if len(attr) == 8:  # UV + tangent planes (kc.emit_tan)
-            cnx, cny, cnz, cuu, cvv = attr[:5]
-            ctan = attr[5:8]
-        elif len(attr) == 5:  # UV base table: trailing (u, v) planes
-            cnx, cny, cnz, cuu, cvv = attr
-        else:
-            cnx, cny, cnz = attr
-        n_inst, t_pad = bvh.n_instances, bvh.t_pad
-        inst_mat = jnp.zeros_like(code)
-        for k in range(n_inst):  # static select chain over instances
-            sel = (code >= jnp.float32(k * t_pad)) & \
-                  (code < jnp.float32((k + 1) * t_pad))
-            inst_mat = jnp.where(sel, bvh.inst_ref[k, 19], inst_mat)
-        hit_tri = code >= 0.0
-    else:
-        res = instanced_cluster_intersect(
-            bvh.inst_tab, bvh.cs, o, d, t_min=t_min, attrs=True,
-            tan=scene.needs_tan)
-        t_w, code_i, cnx, cny, cnz = res[:5]
-        if len(res) >= 7:
-            cuu, cvv = res[5], res[6]
-        if len(res) == 10:
-            ctan = res[7:10]
-        n_inst = bvh.inst_tab.shape[0]
-        inst_id = jnp.maximum(code_i, 0) // bvh.cs.padded_tris
-        inst_mat = _sel(inst_id, bvh.inst_tab[:, 19], n_inst)
-        hit_tri = code_i >= 0
+    res = instanced_cluster_intersect(
+        bvh.inst_tab, bvh.cs, o, d, t_min=t_min, attrs=True,
+        tan=scene.needs_tan)
+    t_w, code_i, cnx, cny, cnz = res[:5]
+    if len(res) >= 7:
+        cuu, cvv = res[5], res[6]
+    if len(res) == 10:
+        ctan = res[7:10]
+    n_inst = bvh.inst_tab.shape[0]
+    inst_id = jnp.maximum(code_i, 0) // bvh.cs.padded_tris
+    inst_mat = _sel(inst_id, bvh.inst_tab[:, 19], n_inst)
+    hit_tri = code_i >= 0
     t_t = jnp.where(hit_tri, t_w, BIG)
 
     use_tri = t_t < t_s
@@ -488,22 +336,13 @@ def _intersect_instanced(scene: PTScene, o, d, t_min, bvh):
     return out
 
 
-def _intersect(scene: PTScene, o, d, t_min, bvh, packet=None):
+def _intersect(scene: PTScene, o, d, t_min, bvh):
     from raytracing_engine_tpu.accel.instancing import InstancedClusters
-    from raytracing_engine_tpu.ops.pallas.cluster_intersect import (
-        KernelClusters,
-    )
-    from raytracing_engine_tpu.ops.pallas.instanced_intersect import (
-        KernelInstances,
-    )
 
-    if isinstance(bvh, (KernelInstances, InstancedClusters)):
+    if isinstance(bvh, InstancedClusters):
         return _intersect_instanced(scene, o, d, t_min, bvh)
-    if isinstance(bvh, KernelClusters):  # in-kernel: gathers impossible
-        return _intersect_clusters(scene, o, d, t_min, bvh)
     t_s, i_s = _sphere_hits(scene, o, d, t_min)
-    t_t, i_t, n_tri, nlen2, tuv, ttan = _tri_hits(scene, o, d, t_min, bvh,
-                                                  packet)
+    t_t, i_t, n_tri, nlen2, tuv, ttan = _tri_hits(scene, o, d, t_min, bvh)
 
     use_tri = t_t < t_s
     t = jnp.minimum(t_s, t_t)
@@ -575,7 +414,7 @@ def _intersect(scene: PTScene, o, d, t_min, bvh, packet=None):
     return out
 
 
-def _occluded(scene: PTScene, o, d, max_t, t_min, bvh, packet=None):
+def _occluded(scene: PTScene, o, d, max_t, t_min, bvh):
     S = scene.sph_pos.shape[0]
     blocked = jnp.zeros_like(o[0], dtype=bool)
     for k in range(S):
@@ -594,31 +433,16 @@ def _occluded(scene: PTScene, o, d, max_t, t_min, bvh, packet=None):
 
     from raytracing_engine_tpu.accel.clusters import ClusterSet
     from raytracing_engine_tpu.accel.instancing import InstancedClusters
-    from raytracing_engine_tpu.ops.pallas.cluster_intersect import (
-        KernelClusters,
-        cluster_sweep,
-    )
     from raytracing_engine_tpu.ops.pallas.instanced_intersect import (
-        KernelInstances,
         instanced_cluster_intersect,
-        instanced_sweep,
     )
 
     T = scene.tri_v0.shape[0]
-    if isinstance(bvh, KernelInstances):  # in-kernel two-level any-hit
-        t0 = jnp.broadcast_to(max_t, o[0].shape)
-        _, code, _ = instanced_sweep(bvh, o, d, t0, t_min=t_min,
-                                     any_hit=True)
-        blocked = blocked | (code >= 0.0)
-    elif isinstance(bvh, InstancedClusters):
+    if isinstance(bvh, InstancedClusters):
         _, code_i = instanced_cluster_intersect(
             bvh.inst_tab, bvh.cs, o, d, t_min=t_min, any_hit=True,
             t_max=max_t)
         blocked = blocked | (code_i >= 0)
-    elif isinstance(bvh, KernelClusters):  # in-kernel any-hit sweep
-        t0 = jnp.broadcast_to(max_t, o[0].shape)
-        _, idx_f, _ = cluster_sweep(bvh, o, d, t0, t_min=t_min, any_hit=True)
-        blocked = blocked | (idx_f >= 0.0)
     elif isinstance(bvh, ClusterSet):
         from raytracing_engine_tpu.accel.clusters import visit_order
         from raytracing_engine_tpu.ops.pallas.cluster_intersect import (
@@ -630,24 +454,12 @@ def _occluded(scene: PTScene, o, d, max_t, t_min, bvh, packet=None):
                                    any_hit=True, order=visit_order(bvh, mean_o))
         blocked = blocked | (idx >= 0)
     elif bvh is not None:
-        if _use_packet(packet):
-            from raytracing_engine_tpu.ops.pallas.bvh_traverse import (
-                bvh_intersect_packet,
-                pack_bvh_tables,
-            )
+        from raytracing_engine_tpu.accel.bvh import bvh_intersect
 
-            tables = pack_bvh_tables(bvh)
-            _, idx = bvh_intersect_packet(
-                tables, o, d, jnp.broadcast_to(max_t, o[0].shape),
-                t_min=t_min, any_hit=True,
-            )
-        else:
-            from raytracing_engine_tpu.accel.bvh import bvh_intersect
-
-            _, idx, _, _ = bvh_intersect(
-                bvh, v3.stack(o), v3.stack(d), t_min=t_min, t_max=max_t,
-                any_hit=True,
-            )
+        _, idx, _, _ = bvh_intersect(
+            bvh, v3.stack(o), v3.stack(d), t_min=t_min, t_max=max_t,
+            any_hit=True,
+        )
         blocked = blocked | (idx >= 0)
     elif T <= TRI_UNROLL_MAX:
         t_t, i_t = _tri_hits_unrolled(scene, o, d, t_min)
@@ -847,7 +659,7 @@ def _mat_lookup(scene: PTScene, mat_id):
 
 
 def _poly_atan2(y, x):
-    """atan2 from mul/add/select only (Mosaic has no atan2 primitive):
+    """atan2 from mul/add/select only:
     octant-reduced Hastings polynomial, |err| < 1e-5 rad. Every engine
     shares this implementation, so sphere UVs stay parity-exact."""
     ax = jnp.abs(x)
@@ -893,11 +705,10 @@ def _atlas_fetch(atlas, ty, tx):
     """Per-lane nearest-texel fetch from the (3K, 128) channel-major atlas.
 
     ty/tx: int32 planes (atlas row / texel column). The column fetch is a
-    lane-axis `take_along_axis` on a broadcast atlas row — Mosaic lowers
-    dynamic LANE gathers on v5e (sublane gathers it cannot) — and the row
-    dimension is a K-row select chain, so one implementation serves the
-    XLA integrators and the in-kernel megakernel bit-identically at
-    ~3K vector ops per fetch (K <= scene.ATLAS_MAX_ROWS = 32)."""
+    lane-axis `take_along_axis` on a broadcast atlas row and the row
+    dimension is a K-row select chain, so one implementation serves both
+    integrators bit-identically at ~3K vector ops per fetch
+    (K <= scene.ATLAS_MAX_ROWS = 32)."""
     K = atlas.shape[0] // 3
     out = []
     for c in range(3):
@@ -1225,215 +1036,19 @@ def _textured_albedo(scene: PTScene, mat_id, albedo, p, uv=None,
     return out
 
 
-def _scene_bbox(cs):
-    """Finite union AABB of a ClusterSet's super boxes (lo V3, hi V3)."""
-    sb = cs.super_boxes
-    finite = jnp.isfinite(sb[:, 0])[:, None]
-    lo = jnp.min(jnp.where(finite, sb[:, 0:3], jnp.inf), axis=0)
-    hi = jnp.max(jnp.where(finite, sb[:, 3:6], -jnp.inf), axis=0)
-    return lo, hi
-
-
-def _sort_keys(o, d, alive, lo, hi):
-    """Coherence sort key per ray: 12-bit origin Morton cell then 3-bit
-    direction octant; dead (parked) rays last. int32 plane."""
-    def q(x, a, b):
-        cell = (x - a) / jnp.maximum(b - a, 1e-6) * 16.0
-        return jnp.clip(cell.astype(jnp.int32), 0, 15)
-
-    qx = q(o[0], lo[0], hi[0])
-    qy = q(o[1], lo[1], hi[1])
-    qz = q(o[2], lo[2], hi[2])
-    morton = jnp.zeros_like(qx)
-    for bit in range(4):
-        morton = (
-            morton
-            | (((qx >> bit) & 1) << (3 * bit + 2))
-            | (((qy >> bit) & 1) << (3 * bit + 1))
-            | (((qz >> bit) & 1) << (3 * bit))
-        )
-    octant = (
-        (d[0] > 0.0).astype(jnp.int32) * 4
-        + (d[1] > 0.0).astype(jnp.int32) * 2
-        + (d[2] > 0.0).astype(jnp.int32)
-    )
-    key = morton * 8 + octant
-    return jnp.where(alive != 0.0, key, jnp.int32(0x7FFF0000))
-
-
-def _compact_perm(o, d, alive, with_oct):
-    """Stable alive-partition permutation — the cheap cross-tile regroup.
-
-    Returns a flat int32 permutation (argsort convention: new[i] =
-    old[perm[i]]) that packs live rays to the front (order-preserving) and
-    parked/dead rays to the back, optionally sub-bucketed by direction
-    octant. Built from B cumsums + one scatter — NO argsort (the argsort in
-    sort=True cost ~40 ms/frame at 512^2, which ate its sweep savings).
-
-    The SWEEP-side win is real (benchmarks/experiment_regroup.py, replayed
-    work counts on the config-3 scene: by bounce 2 only ~5% of rays are
-    alive, scattered over most tiles; packing them models x4.1 on the
-    bounce-2 closest sweep) — but the plane TRANSPORT is not free: at
-    512^2 the ~16-plane permute measured +70 ms/frame on the fast path,
-    more than the sweep saved, for cumsum and argsort permutations alike.
-    Kept as the cheapest permutation builder for when the balance flips
-    (bigger meshes / more clusters per tile).
-    """
-    n = o[0].size
-    if with_oct:
-        key = (
-            (d[0].reshape(-1) > 0.0).astype(jnp.int32) * 4
-            + (d[1].reshape(-1) > 0.0).astype(jnp.int32) * 2
-            + (d[2].reshape(-1) > 0.0).astype(jnp.int32)
-        )
-        nb = 9
-    else:
-        key = jnp.zeros(n, jnp.int32)
-        nb = 2
-    key = jnp.where(alive.reshape(-1) != 0.0, key, nb - 1)
-    dest = jnp.zeros(n, jnp.int32)
-    start = jnp.int32(0)
-    for b in range(nb):
-        m = key == b
-        c = jnp.cumsum(m.astype(jnp.int32))
-        dest = jnp.where(m, start + c - 1, dest)
-        start = start + c[n - 1]
-    return (jnp.zeros(n, jnp.int32)
-            .at[dest].set(jnp.arange(n, dtype=jnp.int32)))
-
-
-def _permute_state(st, perm, h, w):
-    """Apply a flat ray permutation to every plane of the bounce state."""
-    def take(p):
-        return jnp.take(p.reshape(-1), perm, axis=0).reshape(h, w)
-
-    out = {}
-    for k, v in st.items():
-        if k == "nrays":
-            out[k] = v
-        elif isinstance(v, tuple):
-            out[k] = tuple(take(p) for p in v)
-        else:
-            out[k] = take(v)
-    return out
-
-
-_STATE_V3 = ("o", "d", "thr", "rad")
-_STATE_SCALAR = ("alive", "prev_did_nee", "prev_pdf")
-
-
-def state_plane_count(scene: PTScene, cfg: PTConfig | None = None) -> int:
-    """Number of (h, w) f32 planes in a packed inter-launch ray state."""
-    tacc = 1 if (cfg is not None and scene.has_mips
-                 and cfg.tex_filter == "trilinear") else 0
-    return 4 * 3 + 3 + 2 + (1 if scene.has_dispersion else 0) + tacc
-
-
-def pack_state(st) -> jnp.ndarray:
-    """Stack a _trace_core state dict into one (S, h, w) f32 array — the
-    transport format between per-bounce launches (and the operand list of
-    the regroup sort). px/py ride as f32 (exact below 2^24)."""
-    planes = []
-    for k in _STATE_V3:
-        planes.extend(st[k])
-    for k in _STATE_SCALAR:
-        planes.append(st[k])
-    planes.append(st["px"].astype(jnp.float32))
-    planes.append(st["py"].astype(jnp.float32))
-    if "chan" in st:
-        planes.append(st["chan"])
-    if "tacc" in st:
-        planes.append(st["tacc"])
-    return jnp.stack(planes)
-
-
-def unpack_state(arr, has_chan: bool, has_tacc: bool = False):
-    """Inverse of pack_state (arr: (S, h, w) f32 — array or kernel ref)."""
-    st = {}
-    i = 0
-    for k in _STATE_V3:
-        st[k] = (arr[i], arr[i + 1], arr[i + 2])
-        i += 3
-    for k in _STATE_SCALAR:
-        st[k] = arr[i]
-        i += 1
-    st["px"] = arr[i].astype(jnp.int32)
-    st["py"] = arr[i + 1].astype(jnp.int32)
-    i += 2
-    if has_chan:
-        st["chan"] = arr[i]
-        i += 1
-    if has_tacc:
-        st["tacc"] = arr[i]
-    return st
-
-
 def _trace_core(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, key=None,
-                bvh=None, row0=0, band_h=None, packet=None,
-                col0=0, band_w=None, seed0=None, sort=False, pix=None,
-                probe=None, mesh_light=None, gpass=None, seed_base=None,
-                state_in=None, bounce_lo=0, bounce_hi=None,
-                emit_state=False):
+                bvh=None, row0=0, band_h=None, col0=0, band_w=None,
+                seed0=None, mesh_light=None, gpass=None, seed_base=None):
     """One sample per pixel, plane layout. Returns (rad V3 planes, nrays).
 
-    pix: optional (py, px) int32 GLOBAL pixel-coordinate planes (rng='pcg'
-    only). The Pallas megakernel's striped tiles pass these so a VMEM tile
-    can cover an arbitrary (square) pixel block: camera rays and the
-    counter-based RNG are keyed on the true pixel coordinates, keeping any
-    remapping bit-identical to the row-major render.
-
     row0/band_h (and col0/band_w) restrict to a window of the image —
-    tile-sharded rendering, and the Pallas megakernel runs this same core
-    per tile. The threefry RNG draws image-wide and slices (bit-identical
-    sharding); the pcg RNG is counter-based on GLOBAL pixel coords, so a
-    window natively draws its own identical numbers. With rng=pcg, `seed0`
-    (int32 scalar) may replace `key` — required in-kernel, where jax.random
-    keys don't exist.
-
-    sort (XLA path with a ClusterSet only, rng=pcg): regroup ray state
-    between bounces so the cluster sweep's per-tile gates see coherent
-    rays again. RNG stays keyed by each ray's ORIGINAL pixel coordinates
-    (carried through the permutation), making every mode bit-identical to
-    the unsorted render — regrouping is purely an execution-order
-    optimization. Modes:
-
-      True           full Morton-cell + octant argsort. MEASURED NEUTRAL
-                     on the 70k-tri bench at 512^2: saves ~10 ms of sweep,
-                     costs ~40 ms of argsort+permute. Kept + tested for
-                     scenes with more clusters per tile.
-      "compact"      stable alive-partition (cumsum-based, no argsort):
-                     live rays keep pixel order, parked/dead rays pack
-                     into all-parked tiles the sweep falls through.
-      "compact_oct"  same, sub-bucketed by direction octant (9 buckets).
-
-    The compact modes target the measured occupancy collapse at depth (by
-    bounce 2, ~5% of rays alive spread over most tiles — see
-    benchmarks/experiment_regroup.py for the replayed-work-count model).
-
-    state_in / bounce_lo / bounce_hi / emit_state — the per-BOUNCE launch
-    interface behind the rebin renderer (ops/pallas/pt_kernel.render_pt_rebin):
-    a launch runs bounces [bounce_lo, bounce_hi] of this same integrator and
-    emits the full ray-state dict instead of radiance, so the driver can
-    REGROUP rays image-wide between launches (the cross-dispatch compaction
-    the in-kernel levers couldn't buy — see ROADMAP §1). The state carries
-    each ray's ORIGINAL pixel coordinates (px, py) and every RNG draw is
-    counter-keyed on them, so any permutation of the state between launches
-    renders bit-identically. rng='pcg' only.
-
-      state_in     dict of state planes from a previous emit_state launch
-                   (skips camera generation; bounce_lo > 0)
-      bounce_lo    first bounce index this launch runs (default 0)
-      bounce_hi    last bounce index, inclusive (default cfg.max_bounces)
-      emit_state   return the state dict (with rad/nrays inside) instead
-                   of (rad, nrays)
+    tile-sharded rendering. The threefry RNG draws image-wide and slices
+    (bit-identical sharding); the pcg RNG is counter-based on GLOBAL pixel
+    coords, so a window natively draws its own identical numbers. With
+    rng=pcg, `seed0` (int32 scalar) may replace `key`.
     """
     h, w = (band_h or cfg.height), (band_w or cfg.width)
 
-    if pix is not None and cfg.rng != "pcg":
-        raise ValueError("pix coordinate planes require rng='pcg'")
-    staged = emit_state or state_in is not None or bounce_lo > 0
-    if staged and cfg.rng != "pcg":
-        raise ValueError("state_in/emit_state staging requires rng='pcg'")
     if cfg.fog_scatter > 0.0 and not (0.0 < cfg.fog_scatter
                                       <= cfg.fog_density):
         raise ValueError(
@@ -1443,30 +1058,18 @@ def _trace_core(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, key=None,
         raise ValueError(
             "tex_filter='trilinear' needs packed mip chains — build the "
             "scene with build_pt_scene(tex_mips=True)")
-    if bounce_hi is None:
-        bounce_hi = cfg.max_bounces
-    if staged and sort:
-        raise ValueError("staged launches regroup OUTSIDE the core; "
-                         "sort modes only apply to full in-core traces")
     if cfg.light_sampling == "tree" and not scene.has_light_tree:
         raise ValueError(
             "light_sampling='tree' needs the scene's light-tree tables — "
             "build it with build_pt_scene(..., light_tree=C)")
     if cfg.light_sampling == "tree" and scene.n_tri_slot_lights:
         from raytracing_engine_tpu.accel.instancing import InstancedClusters
-        from raytracing_engine_tpu.ops.pallas.cluster_intersect import (
-            KernelClusters,
-        )
-        from raytracing_engine_tpu.ops.pallas.instanced_intersect import (
-            KernelInstances,
-        )
 
-        if isinstance(bvh, (KernelClusters, KernelInstances,
-                            InstancedClusters)):
+        if isinstance(bvh, InstancedClusters):
             raise ValueError(
                 "light_sampling='tree' with triangle slot lights cannot "
-                "run over an in-kernel cluster/instanced intersector: "
-                "those sweeps cannot recover a hit triangle's original "
+                "run over the instanced intersector: it cannot recover a "
+                "hit triangle's original "
                 "slot, so its hit-side MIS density reads 0 while NEE also "
                 "samples the light (double-counted direct lighting). Use "
                 "sphere lights, the gather BVH path, or "
@@ -1475,28 +1078,12 @@ def _trace_core(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, key=None,
         from raytracing_engine_tpu.ops.rng_pcg import uniform_pcg, uniform_pcg_coords
 
         if seed0 is None:
-            from raytracing_engine_tpu.ops.pallas.rng import key_to_seed
+            from raytracing_engine_tpu.ops.rng_pcg import key_to_seed
 
             seed0 = key_to_seed(key)
 
-        if pix is not None:
-            def draw_b(b, n):
-                return uniform_pcg_coords(seed0, b, n, pix[1], pix[0])
-        else:
-            def draw_b(b, n):
-                return uniform_pcg(seed0, b, n, h, w, row0=row0, col0=col0)
-    elif cfg.rng == "pallas":
-        from raytracing_engine_tpu.ops.pallas.rng import key_to_seed, uniform_planes
-
-        seed0 = key_to_seed(key)
-
         def draw_b(b, n):
-            full = uniform_planes(seed0 + b, n, cfg.height, cfg.width)
-            if band_h is not None:
-                full = lax.dynamic_slice_in_dim(full, row0, band_h, axis=1)
-            if band_w is not None:
-                full = lax.dynamic_slice_in_dim(full, col0, band_w, axis=2)
-            return full
+            return uniform_pcg(seed0, b, n, h, w, row0=row0, col0=col0)
     else:
         def draw_b(b, n):
             full = random.uniform(random.fold_in(key, b), (n, cfg.height, cfg.width))
@@ -1506,85 +1093,50 @@ def _trace_core(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, key=None,
                 full = lax.dynamic_slice_in_dim(full, col0, band_w, axis=2)
             return full
 
-    if sort:
-        from raytracing_engine_tpu.accel.clusters import ClusterSet
-
-        if sort not in (True, "compact", "compact_oct"):
-            raise ValueError(f"sort must be True/'compact'/'compact_oct', "
-                             f"got {sort!r}")
-        if cfg.rng != "pcg":
-            raise ValueError("sort requires rng='pcg'")
-        if not isinstance(bvh, ClusterSet):
-            raise ValueError("sort requires a ClusterSet bvh")
-        if band_h is not None or band_w is not None or row0 or col0:
-            raise ValueError("sort operates on the full image "
-                             "(no row0/col0/band windows)")
-        from raytracing_engine_tpu.ops.rng_pcg import uniform_pcg_coords
-
-        if sort is True:
-            bbox_lo, bbox_hi = _scene_bbox(bvh)
-
     use_r2 = cfg.sampler == "r2"
     if use_r2:
         if cfg.rng != "pcg" or gpass is None:
             raise ValueError(
                 "sampler='r2' needs rng='pcg' and a global pass index "
-                "(render via render_pt_fast / render_pt_mega)")
+                "(render via render_pt_fast)")
         from raytracing_engine_tpu.ops.rng_pcg import r2_planes
 
-        if pix is not None:
-            r2py, r2px = pix[0], pix[1]
-        else:
-            r2px = jax.lax.broadcasted_iota(jnp.int32, (h, w), 1) + col0
-            r2py = jax.lax.broadcasted_iota(jnp.int32, (h, w), 0) + row0
+        r2px = jax.lax.broadcasted_iota(jnp.int32, (h, w), 1) + col0
+        r2py = jax.lax.broadcasted_iota(jnp.int32, (h, w), 0) + row0
         _r2_seed = seed_base if seed_base is not None else seed0
 
         def draw_r2(n, channel):
             return r2_planes(_r2_seed, gpass, n, r2px, r2py, channel=channel)
 
-    if state_in is not None:
-        st = dict(state_in)
-        zero = st["alive"] * 0.0
-        st.setdefault("nrays", jnp.sum(zero))
-    else:
-        n_cam = 4 if cfg.aperture > 0.0 else 2  # +2 lens dims when DOF is on
-        u = draw_r2(n_cam, 0x52AD1A7E) if use_r2 else draw_b(0, n_cam)
-        o, d = _camera_rays(cfg, cam_pos, cam_quat, u[0], u[1], row0=row0,
-                            col0=col0, coords=pix,
-                            lens=(u[2], u[3]) if n_cam == 4 else None)
+    n_cam = 4 if cfg.aperture > 0.0 else 2  # +2 lens dims when DOF is on
+    u = draw_r2(n_cam, 0x52AD1A7E) if use_r2 else draw_b(0, n_cam)
+    o, d = _camera_rays(cfg, cam_pos, cam_quat, u[0], u[1], row0=row0,
+                        col0=col0,
+                        lens=(u[2], u[3]) if n_cam == 4 else None)
 
-        zero = d[0] * 0.0
-        o = v3.add(o, v3.scale(d, 0.0))  # make o device-varying like d
-        # masks carried as f32 0/1 planes (Mosaic cannot carry i1 vectors in
-        # loop state; harmless for the XLA path)
-        st = dict(
-            o=o, d=d,
-            thr=(zero + 1.0, zero + 1.0, zero + 1.0),
-            rad=(zero, zero, zero),
-            alive=zero + 1.0,
-            prev_did_nee=zero,
-            prev_pdf=zero,
-            nrays=jnp.sum(zero),
-        )
-        if scene.has_dispersion:
-            # committed color channel per lane (-1 = achromatic so far);
-            # set at the first dispersive-glass hit — see scene.mat_dispersion
-            st["chan"] = zero - 1.0
-        if scene.has_mips and cfg.tex_filter == "trilinear":
-            # ray-cone LOD state: total path distance so far (the cone
-            # width is tacc * 2*fov/width — see _mip_lod_footprint)
-            st["tacc"] = zero
-        if sort or staged:
-            if pix is not None:
-                st["py"], st["px"] = pix[0], pix[1]
-            else:
-                st["px"] = jax.lax.broadcasted_iota(jnp.int32, (h, w), 1) + col0
-                st["py"] = jax.lax.broadcasted_iota(jnp.int32, (h, w), 0) + row0
+    zero = d[0] * 0.0
+    o = v3.add(o, v3.scale(d, 0.0))  # make o device-varying like d
+    # masks carried as f32 0/1 planes
+    st = dict(
+        o=o, d=d,
+        thr=(zero + 1.0, zero + 1.0, zero + 1.0),
+        rad=(zero, zero, zero),
+        alive=zero + 1.0,
+        prev_did_nee=zero,
+        prev_pdf=zero,
+        nrays=jnp.sum(zero),
+    )
+    if scene.has_dispersion:
+        # committed color channel per lane (-1 = achromatic so far);
+        # set at the first dispersive-glass hit — see scene.mat_dispersion
+        st["chan"] = zero - 1.0
+    if scene.has_mips and cfg.tex_filter == "trilinear":
+        # ray-cone LOD state: total path distance so far (the cone
+        # width is tacc * 2*fov/width — see _mip_lod_footprint)
+        st["tacc"] = zero
 
     def bounce(b, st):
         st = dict(st)
-        if probe is not None:  # instrumentation: pre-sweep ray state
-            probe("ray", b, dict(o=st["o"], d=st["d"], alive=st["alive"]))
         nu = 6 if cfg.rr_start > 0 else 5  # [5] = roulette coin
         # lane mesh lights append one dedicated per-lane triangle-selection
         # dim AFTER the fixed layout (streams of other scenes unchanged)
@@ -1596,24 +1148,18 @@ def _trace_core(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, key=None,
         if cfg.fog_scatter > 0.0:
             media_dim = nu
             nu = nu + (5 if scene.has_lane_mesh_light else 4)
-        if sort or staged:
-            from raytracing_engine_tpu.ops.rng_pcg import uniform_pcg_coords
-
-            u = uniform_pcg_coords(seed0, b + 1, nu, st["px"], st["py"])
-        else:
-            u = draw_b(b + 1, nu)
-        if use_r2 and cfg.use_nee and not (isinstance(b, int) and b != 0):
+        u = draw_b(b + 1, nu)
+        if use_r2 and cfg.use_nee:
             # bounce-0 NEE light dims (area-light penumbras — the direct-
             # lighting integral): 3D R_d sequence on an independent
-            # rotation channel; deeper bounces stay random (a staged launch
-            # knows b statically and skips the dead draw outright)
+            # rotation channel; deeper bounces stay random
             r2u = draw_r2(3, 0x1D0C0FFE)
             first = b == 0
             u = tuple(jnp.where(first, r2u[k - 2], u[k]) if 2 <= k <= 4
                       else u[k] for k in range(nu))
         st["nrays"] = st["nrays"] + jnp.sum(st["alive"])
 
-        isect = _intersect(scene, st["o"], st["d"], cfg.t_min, bvh, packet)
+        isect = _intersect(scene, st["o"], st["d"], cfg.t_min, bvh)
         if cfg.fog_density > 0.0:  # static: fog-free scenes pay nothing
             # Beer-Lambert over this segment (escapes = infinite); the
             # absorbed energy re-emerges as constant in-scatter fog_color
@@ -1671,7 +1217,7 @@ def _trace_core(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, key=None,
                 sh_dm = v3.where(cand_m, wim, dead_d_m)
                 blocked_m = _occluded(scene, sh_om, sh_dm,
                                       rdist * (1.0 - 1e-3), cfg.t_min,
-                                      bvh, packet)
+                                      bvh)
                 gain = (jnp.float32(cfg.fog_scatter)
                         * jnp.exp(-cfg.fog_density * tt)
                         * (1.0 / (4.0 * _PI)) * cos_lm
@@ -1889,10 +1435,7 @@ def _trace_core(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, key=None,
             max_t = dist * (1.0 - 1e-3)
             if scene.has_env_map:
                 max_t = jnp.where(sel_env, BIG, max_t)
-            if probe is not None:  # instrumentation: NEE occlusion rays
-                probe("shadow", b, dict(o=sh_o, d=sh_d, cand=cand,
-                                        dist=max_t))
-            blocked = _occluded(scene, sh_o, sh_d, max_t, cfg.t_min, bvh, packet)
+            blocked = _occluded(scene, sh_o, sh_d, max_t, cfg.t_min, bvh)
             vis = cand & ~blocked
 
             pdf_w = pdf_area * dist**2 / jnp.maximum(cos_ll, 1e-6)
@@ -2011,10 +1554,6 @@ def _trace_core(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, key=None,
                 # land on its branch's side of the surface; invalid
                 # samples get weight 0 (standard NDF rejection — the
                 # throughput gate kills the lane, as for metal).
-                # Logical form, not jnp.where-on-bools: Mosaic's i1
-                # select lowers through an i8->i1 trunci it rejects on
-                # wide tiles ("Unsupported target bitwidth for
-                # truncation") — &/| on masks lower clean.
                 ok_r = ((cosi_h > 0.0)
                         & ((refl_h & (cos_i_r > 0.0))
                            | (~refl_h & (cos_i_r < 0.0))))
@@ -2076,8 +1615,6 @@ def _trace_core(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, key=None,
             p_c = jnp.clip(
                 jnp.maximum(new_thr[0],
                             jnp.maximum(new_thr[1], new_thr[2])), 0.05, 1.0)
-            # jnp.bool_: a staged launch's b is a python int, and python's
-            # `~bool` is an int bitwise-not, not negation
             rr_on = jnp.bool_(b >= cfg.rr_start)
             cont = cont & (~rr_on | (u[5] < p_c))
             inv_p = jnp.where(rr_on, 1.0 / p_c, 1.0)
@@ -2104,75 +1641,32 @@ def _trace_core(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, key=None,
         st["prev_did_nee"] = jnp.where(did_nee, 1.0, 0.0)
         st["prev_pdf"] = pdf_bsdf
 
-        if sort:
-            if sort is True:
-                keys = _sort_keys(st["o"], st["d"], st["alive"],
-                                  bbox_lo, bbox_hi)
-                perm = jnp.argsort(keys.reshape(-1))
-            else:
-                perm = _compact_perm(st["o"], st["d"], st["alive"],
-                                     with_oct=(sort == "compact_oct"))
-            st = _permute_state(st, perm, h, w)
         return st
 
-    if staged:
-        # per-bounce launch window: unrolled (b is static — the enclosing
-        # Pallas bounce kernel compiles one program per bounce index)
-        for b in range(bounce_lo, bounce_hi + 1):
-            st = bounce(b, st)
-        if emit_state:
-            return st
-    elif probe is None:
-        st = lax.fori_loop(0, bounce_hi + 1, bounce, st)
-    else:
-        # instrumentation mode: unrolled python loop so the probe callback
-        # sees concrete per-bounce ray states (call un-jitted)
-        for b in range(bounce_hi + 1):
-            st = bounce(b, st)
-    if sort:
-        # un-permute radiance back to pixel order (one ray per pixel)
-        flat = (st["py"] * w + st["px"]).reshape(-1)
-        st["rad"] = tuple(
-            jnp.zeros(h * w, jnp.float32).at[flat].set(p.reshape(-1)).reshape(h, w)
-            for p in st["rad"]
-        )
+    st = lax.fori_loop(0, cfg.max_bounces + 1, bounce, st)
     return st["rad"], st["nrays"]
 
 
-def trace_window_planes(*args, **kwargs):
-    """Plane-returning core (the Pallas megakernel calls this per tile)."""
-    return _trace_core(*args, **kwargs)
-
-
 def trace_pass_soa(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, key=None,
-                   bvh=None, row0=0, band_h=None, packet=None,
-                   col0=0, band_w=None, seed0=None, sort=False, probe=None,
-                   mesh_light=None, gpass=None, seed_base=None):
+                   bvh=None, row0=0, band_h=None, col0=0, band_w=None,
+                   seed0=None, mesh_light=None, gpass=None, seed_base=None):
     """One sample per pixel. Returns ((h, w, 3) image, nrays) — see
     _trace_core for the window semantics."""
     rad, nrays = _trace_core(cfg, scene, cam_pos, cam_quat, key, bvh, row0,
-                             band_h, packet, col0, band_w, seed0, sort,
-                             probe=probe, mesh_light=mesh_light,
-                             gpass=gpass, seed_base=seed_base)
+                             band_h, col0, band_w, seed0,
+                             mesh_light=mesh_light, gpass=gpass,
+                             seed_base=seed_base)
     return jnp.stack([rad[0], rad[1], rad[2]], axis=-1), nrays
 
 
-@partial(jax.jit, static_argnums=(0, 4), static_argnames=("packet", "sort"))
+@partial(jax.jit, static_argnums=(0, 4))
 def render_pt_fast(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, spp: int,
-                   key=None, bvh=None, spp_offset=0, packet=None, sort=False):
-    """SoA render: average spp passes (same sample stream as render_pt).
-
-    sort (rng='pcg' + ClusterSet bvh): regroup secondary rays between
-    bounces — bit-identical image, see _trace_core for modes. MEASURED
-    SLOWER at bench scale (fast-path config 3: 217 ms unsorted, 282 ms
-    argsort, 286 ms compact): the ~16-plane permute transport costs more
-    than the sweep savings, whichever way the permutation is built. Kept
-    (tested bit-identical) as the regroup scaffold for scenes where
-    per-tile cluster counts grow."""
+                   key=None, bvh=None, spp_offset=0):
+    """SoA render: average spp passes (same sample stream as render_pt)."""
     if key is None:
         key = random.PRNGKey(0)
 
-    from raytracing_engine_tpu.ops.pallas.rng import key_to_seed
+    from raytracing_engine_tpu.ops.rng_pcg import key_to_seed
 
     def _mlt(i):
         if not scene.has_mesh_light:
@@ -2184,27 +1678,22 @@ def render_pt_fast(cfg: PTConfig, scene: PTScene, cam_pos, cam_quat, spp: int,
 
     if cfg.rng == "pcg":
         # derive one base seed; pass i's stream = base + global_pass * prime
-        # (identical construction in the Pallas megakernel)
         base = key_to_seed(key)
 
         def body(i, carry):
             acc, nrays = carry
             seed_pass = base + (spp_offset + i) * jnp.int32(-1640531527)
             img, nr = trace_pass_soa(cfg, scene, cam_pos, cam_quat, None,
-                                     bvh=bvh, packet=packet, seed0=seed_pass,
-                                     sort=sort, mesh_light=_mlt(i),
+                                     bvh=bvh, seed0=seed_pass,
+                                     mesh_light=_mlt(i),
                                      gpass=spp_offset + i, seed_base=base)
             return acc + img, nrays + nr
     else:
-        if sort:
-            raise ValueError("sort=True requires rng='pcg'")
-
         def body(i, carry):
             acc, nrays = carry
             img, nr = trace_pass_soa(cfg, scene, cam_pos, cam_quat,
                                      random.fold_in(key, spp_offset + i),
-                                     bvh=bvh, packet=packet,
-                                     mesh_light=_mlt(i))
+                                     bvh=bvh, mesh_light=_mlt(i))
             return acc + img, nrays + nr
 
     acc, nrays = lax.fori_loop(

@@ -2,7 +2,7 @@
 
 The reference packs the scene into one std140 UBO of AoS structs with fixed
 capacities and counts (``MutableData`` — reference shaders/compute.glsl:17-24,
-host assembly src/main.rs:593-601). On TPU the idiomatic layout is SoA with
+host assembly src/main.rs:593-601). Here the layout is SoA with
 static shapes: positions (MAX_OBJECTS, 3), radii (MAX_OBJECTS,), etc., padded
 to capacity and masked by counts. Counts are traced int32 scalars (the
 reference treats them as uniforms, not specialization constants), so one

@@ -1,8 +1,8 @@
 """Headless image output.
 
 The reference presents to a swapchain (UNORM formats — linear floats are
-clamped to [0,1] and quantized to 8-bit on store, src/main.rs:476-484); the
-TPU build is headless and writes PNGs. ``to_srgb_u8`` reproduces the UNORM
+clamped to [0,1] and quantized to 8-bit on store, src/main.rs:476-484); this
+build is headless and writes PNGs. ``to_srgb_u8`` reproduces the UNORM
 clamp+quantize (no gamma — the reference requests *_UNORM, not *_SRGB, so the
 shader's linear output is displayed as-is).
 

@@ -13,6 +13,8 @@ import dataclasses
 import time
 from collections import defaultdict
 
+import numpy as np
+
 
 class Timer:
     """Wall-clock stage timer. Callers must block_until_ready() before stop
@@ -71,3 +73,26 @@ def conemarch_ray_count(cfg, num_lights: int) -> tuple[int, int]:
     primary = sum(w * h for (w, h) in cfg.level_dims)
     secondary = cfg.width * cfg.height * num_lights
     return primary, secondary
+
+
+def time_frames(fn, args_list, warmup: int = 2):
+    """Wall time of `fn(*args)` for each argument tuple, each call ending in
+    `jax.block_until_ready`. The first `warmup` tuples are run untimed (the
+    first one compiles). Returns the timed samples in milliseconds."""
+    import jax
+
+    for args in args_list[:warmup]:
+        jax.block_until_ready(fn(*args))
+    out = []
+    for args in args_list[warmup:]:
+        t0 = time.perf_counter()
+        jax.block_until_ready(fn(*args))
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def summarize_ms(samples) -> dict:
+    """Median, p90 and count of a list of millisecond samples."""
+    a = np.asarray(samples, np.float64)
+    return {"median_ms": float(np.median(a)),
+            "p90_ms": float(np.percentile(a, 90)), "n": int(a.size)}

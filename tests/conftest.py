@@ -1,20 +1,26 @@
 """Test harness config: run everything on CPU with 8 virtual devices.
 
-This is the standard JAX fake-backend trick (SURVEY.md §4.4): multi-chip
-tile/sample sharding is validated without a pod, and Pallas kernels run in
-interpreter mode (they auto-detect a non-TPU backend). Must run before jax
-is imported anywhere.
+This is the standard JAX fake-backend trick (SURVEY.md §4.4): multi-device
+tile/sample sharding is validated without a GPU cluster, and Pallas kernels
+run in the interpreter (ops/pallas/common.interpret_mode). Must run before
+jax is imported anywhere.
+
+Card-only tests carry the `gpu` marker and request the `gpu` fixture, which
+skips them unless JAX runs on a GPU. `chip_smoke.py` runs them on the card:
+it sets RTE_TEST_DEVICE=gpu so this file leaves the platform alone.
 """
 
 import os
 import sys
 
-os.environ["JAX_PLATFORMS"] = "cpu"
-_flags = os.environ.get("XLA_FLAGS", "")
-if "xla_force_host_platform_device_count" not in _flags:
-    os.environ["XLA_FLAGS"] = (
-        _flags + " --xla_force_host_platform_device_count=8"
-    ).strip()
+ON_CARD = os.environ.get("RTE_TEST_DEVICE") == "gpu"
+if not ON_CARD:
+    os.environ["JAX_PLATFORMS"] = "cpu"
+    _flags = os.environ.get("XLA_FLAGS", "")
+    if "xla_force_host_platform_device_count" not in _flags:
+        os.environ["XLA_FLAGS"] = (
+            _flags + " --xla_force_host_platform_device_count=8"
+        ).strip()
 
 # Persistent XLA compile cache: DISABLED for the suite. It was a real
 # speedup (test_clusters.py 152 s cold -> 61 s warm), but this jaxlib's
@@ -30,13 +36,24 @@ os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "")
 
 # JAX_PLATFORMS is bound to jax.config at import time; if a pytest plugin
 # already imported jax (before this conftest), the env var alone is too late.
-if "jax" in sys.modules:
+if "jax" in sys.modules and not ON_CARD:
     import jax
 
     jax.config.update("jax_platforms", "cpu")
 
 import numpy as np  # noqa: E402
 import pytest  # noqa: E402
+
+
+@pytest.fixture
+def gpu():
+    """Skip unless JAX runs on a GPU (decided when the test runs, never at
+    import or collection, so every xdist worker collects the same tests)."""
+    import jax
+
+    if jax.default_backend() != "gpu":
+        pytest.skip("needs an NVIDIA GPU; run through chip_smoke.py")
+    return jax.devices()[0]
 
 
 @pytest.fixture(scope="session")

@@ -10,7 +10,7 @@ from raytracing_engine_tpu.utils.image import read_png
 
 def test_cli_render(tmp_path):
     out = str(tmp_path / "frames")
-    main(["render", "--size", "64x64", "--out", out, "--engine", "jnp"])
+    main(["render", "--size", "64x64", "--out", out])
     img = read_png(os.path.join(out, "frame_0000.png"))
     assert img.shape == (64, 64, 3)
     assert img.sum() > 0
@@ -67,35 +67,3 @@ def test_cli_pt_obj_scene(tmp_path):
     img = read_png(out)
     assert img.shape == (32, 64, 3)
     assert (img > 0).any()
-
-
-def test_cli_pt_engine_rebin(tmp_path):
-    """--engine rebin routes a cluster-mesh scene through the flagship
-    per-bounce rebin engine (clusters are built even off-TPU so the CLI
-    path is testable; interpret mode covers the kernels)."""
-    import numpy as np
-
-    from raytracing_engine_tpu.accel import icosphere, save_obj
-    from raytracing_engine_tpu.cli import main
-    from raytracing_engine_tpu.utils.image import read_png
-
-    obj = str(tmp_path / "ball.obj")
-    save_obj(obj, icosphere(subdivisions=1, radius=1.5,
-                            center=(0.0, 6.0, 0.0)))
-    out = str(tmp_path / "rebin.png")
-    main(["pt", "--scene", "obj", "--mesh", obj, "--size", "64x32",
-          "--spp", "1", "--bounces", "2", "--bvh",
-          "--engine", "rebin", "--out", out])
-    img = read_png(out)
-    assert img.shape == (32, 64, 3)
-    assert (img > 0).any()
-
-
-def test_cli_pt_engine_rebin_needs_bvh():
-    import pytest
-
-    from raytracing_engine_tpu.cli import main
-
-    with pytest.raises(SystemExit, match="rebin"):
-        main(["pt", "--scene", "cornell", "--size", "32x32", "--spp", "1",
-              "--bounces", "2", "--engine", "rebin"])

@@ -138,42 +138,6 @@ def test_visit_order_is_permutation_and_order_independent(setup):
     np.testing.assert_allclose(np.asarray(t_b), np.asarray(t_a), rtol=1e-6)
 
 
-def test_intersect_clusters_attrs_path_matches_gather_path():
-    """The gather-free _intersect_clusters (kept for in-kernel consumers)
-    must agree with the production gather path."""
-    from raytracing_engine_tpu.accel.clusters import build_clusters
-    from raytracing_engine_tpu.pathtracer.scene import DIFFUSE, build_pt_scene
-    from raytracing_engine_tpu.pathtracer.wavefront import (
-        _intersect,
-        _intersect_clusters,
-    )
-
-    tris = icosphere(subdivisions=2, radius=1.2, center=(0.0, 5.0, 0.0))
-    tri_mats = (np.arange(tris.shape[0]) % 2).astype(np.int32)
-    cs = build_clusters(tris, tri_mats=tri_mats)
-    scene = build_pt_scene(
-        spheres=[((3.0, 3.0, 3.0), 1.0, 1)],
-        triangles=tris,
-        tri_mats=tri_mats,
-        materials=[{"albedo": (0.5,) * 3, "kind": DIFFUSE},
-                   {"albedo": (0.7,) * 3, "kind": DIFFUSE}],
-    )
-    o, d = _ray_grid(8, 128, seed=13)
-    a = _intersect(scene, o, d, 1e-3, cs)
-    b = _intersect_clusters(scene, o, d, 1e-3, cs)
-    hit = np.asarray(a["hit"])
-    np.testing.assert_array_equal(hit, np.asarray(b["hit"]))
-    np.testing.assert_allclose(np.asarray(a["t"])[hit], np.asarray(b["t"])[hit],
-                               rtol=1e-5)
-    np.testing.assert_array_equal(np.asarray(a["mat_id"])[hit],
-                                  np.asarray(b["mat_id"])[hit])
-    for c in range(3):
-        np.testing.assert_allclose(np.asarray(a["n"][c])[hit],
-                                   np.asarray(b["n"][c])[hit], atol=1e-5)
-    np.testing.assert_allclose(np.asarray(a["light_area"])[hit],
-                               np.asarray(b["light_area"])[hit], rtol=1e-4)
-
-
 def test_subtree_ranges_partition_and_fill():
     """Subtree-aligned clustering: ranges exactly partition the reordered
     triangle list, each fits one cluster, boxes are no looser than the

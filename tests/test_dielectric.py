@@ -4,8 +4,7 @@ The dielectric splits between Fresnel reflection and Snell refraction with
 one-sample R/(1-R) selection, so throughput carries only the albedo tint —
 a clear glass is energy-exact and must pass the furnace test. The same
 scatter math lives in pathtracer/integrator.py (stacked reference) and
-pathtracer/wavefront.py (SoA core shared by render_pt_fast and the Pallas
-megakernel); these tests pin the physics and the cross-implementation
+pathtracer/wavefront.py (SoA core of render_pt_fast); these tests pin the physics and the cross-implementation
 agreement.
 """
 
@@ -121,30 +120,6 @@ def test_wavefront_matches_reference_integrator():
     # float-reassociation noise scales with the Le=20 light
     assert np.abs(a - b).max() < 6e-3
     assert abs(a.mean() - b.mean()) < 1e-4
-
-
-@pytest.mark.slow
-def test_megakernel_matches_wavefront_glass():
-    """The Pallas megakernel (interpret mode) runs the same _trace_core:
-    glass scenes must agree with render_pt_fast under the pcg stream."""
-    from raytracing_engine_tpu.ops.pallas.pt_kernel import render_pt_mega
-
-    mats = [
-        {"albedo": (0.6, 0.6, 0.6), "kind": DIFFUSE},
-        {"kind": DIELECTRIC, "ior": 1.5},
-        {"albedo": (0, 0, 0), "emission": (20.0,) * 3, "kind": DIFFUSE},
-    ]
-    scene = build_pt_scene(
-        spheres=[((0.0, 6.0, -101.5), 100.0, 0),
-                 ((0.0, 6.0, 0.0), 1.0, 1),
-                 ((3.0, 4.0, 4.0), 0.8, 2)],
-        materials=mats)
-    cfg = PTConfig(width=32, height=16, max_bounces=4, rng="pcg")
-    want, _ = render_pt_fast(cfg, scene, POS, QUAT, 4, KEY)
-    got, _ = render_pt_mega(cfg, scene, POS, QUAT, 4, KEY)
-    d = np.abs(np.asarray(got) - np.asarray(want)).max(-1)
-    assert (d > 1e-3).mean() < 0.01, f"{(d > 1e-3).mean():.3%} diverged"
-    assert d.mean() < 1e-4
 
 
 def test_sceneio_dielectric_kind(tmp_path):

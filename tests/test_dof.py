@@ -90,17 +90,3 @@ def test_dof_furnace_energy():
     img = np.asarray(img)
     corners = np.stack([img[0, 0], img[0, -1], img[-1, 0], img[-1, -1]])
     np.testing.assert_allclose(corners, 1.0, atol=1e-4)
-
-
-@pytest.mark.slow
-def test_dof_megakernel_matches_wavefront():
-    from raytracing_engine_tpu.ops.pallas.pt_kernel import render_pt_mega
-
-    cfg = PTConfig(width=32, height=16, max_bounces=1, rng="pcg",
-                   aperture=0.3, focus_dist=8.0)
-    scene = two_spheres_scene()
-    want, _ = render_pt_fast(cfg, scene, POS, QUAT, 4, KEY)
-    got, _ = render_pt_mega(cfg, scene, POS, QUAT, 4, KEY)
-    d = np.abs(np.asarray(got) - np.asarray(want)).max(-1)
-    assert (d > 1e-3).mean() < 0.01
-    assert d.mean() < 1e-4

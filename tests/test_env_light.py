@@ -93,22 +93,6 @@ def test_env_composes_with_nee_area_light():
     np.testing.assert_allclose(np.asarray(both), s, atol=0.05)
 
 
-@pytest.mark.slow
-def test_env_megakernel_matches_wavefront():
-    from raytracing_engine_tpu.ops.pallas.pt_kernel import render_pt_mega
-
-    scene = build_pt_scene(
-        spheres=[((0.0, 4.0, 0.0), 1.0, 0)],
-        materials=[{"albedo": (0.6, 0.5, 0.4), "kind": DIFFUSE}],
-        env=((0.2, 0.3, 0.4), (1.0, 0.9, 0.8)))
-    cfg = PTConfig(width=32, height=16, max_bounces=2, rng="pcg")
-    want, _ = render_pt_fast(cfg, scene, POS, QUAT, 4, KEY)
-    got, _ = render_pt_mega(cfg, scene, POS, QUAT, 4, KEY)
-    d = np.abs(np.asarray(got) - np.asarray(want)).max(-1)
-    assert (d > 1e-3).mean() < 0.01
-    assert d.mean() < 1e-4
-
-
 def test_sceneio_env(tmp_path):
     import json
 

@@ -174,24 +174,6 @@ def test_env_map_wavefront_matches_reference():
     assert float(na) == float(nb)
 
 
-def test_env_map_megakernel_matches_wavefront():
-    from raytracing_engine_tpu.ops.pallas.pt_kernel import render_pt_mega
-
-    scene = build_pt_scene(
-        spheres=[((0.0, 4.0, 0.0), 1.0, 0), ((2.0, 5.0, 1.5), 0.6, 1)],
-        materials=[{"albedo": (0.6, 0.5, 0.4), "kind": DIFFUSE},
-                   {"albedo": (0, 0, 0), "emission": (6.0,) * 3,
-                    "kind": DIFFUSE}],
-        env=_sun_map(le=40.0, sky=0.2))
-    cfg = PTConfig(width=128, height=16, max_bounces=2, rng="pcg")
-    want, n_want = render_pt_fast(cfg, scene, POS, QUAT, 2, KEY)
-    got, n_got = render_pt_mega(cfg, scene, POS, QUAT, 2, KEY)
-    d = np.abs(np.asarray(got) - np.asarray(want)).max(-1)
-    assert (d > 1e-3).mean() < 0.02, f"{(d > 1e-3).mean():.3%} diverged"
-    assert d.mean() < 2e-4
-    assert float(n_want) == float(n_got)
-
-
 def test_env_map_excludes_gradient():
     """An image env replaces the gradient env (mutually exclusive)."""
     scene = build_pt_scene(env=_const_map((1.0, 1.0, 1.0)))
@@ -219,37 +201,6 @@ def test_env_map_json_roundtrip(tmp_path):
     assert scene.has_env_map and scene.env is None
     assert scene.env_img.shape == (12, 128)
     np.testing.assert_allclose(np.asarray(scene.env_img[0]), 0.3)
-
-
-def test_env_map_cluster_mega_and_rebin():
-    """Env map through the CLUSTER megakernel and the rebin renderer:
-    exercises the env tables as kernel inputs on the mesh path (VMEM
-    radiance/sampling rows + SMEM pick scalar)."""
-    from raytracing_engine_tpu.accel import icosphere
-    from raytracing_engine_tpu.accel.clusters import build_clusters
-    from raytracing_engine_tpu.ops.pallas.pt_kernel import (
-        render_pt_mega,
-        render_pt_rebin,
-    )
-
-    tris = icosphere(subdivisions=1, radius=1.2, center=(0.0, 5.0, 0.0))
-    tri_mats = np.zeros(len(tris), np.int32)
-    scene = build_pt_scene(
-        spheres=[((3.0, 3.0, 3.0), 1.0, 1)],
-        triangles=tris, tri_mats=tri_mats,
-        materials=[{"albedo": (0.6, 0.5, 0.4), "kind": DIFFUSE},
-                   {"albedo": (0, 0, 0), "emission": (6.0,) * 3,
-                    "kind": DIFFUSE}],
-        env=_sun_map(le=40.0, sky=0.2))
-    cs = build_clusters(tris, tri_mats=tri_mats)
-    cfg = PTConfig(width=128, height=16, max_bounces=2, rng="pcg")
-    want, n_want = render_pt_fast(cfg, scene, POS, QUAT, 2, KEY, bvh=cs)
-    got, n_got = render_pt_mega(cfg, scene, POS, QUAT, 2, KEY, bvh=cs)
-    d = np.abs(np.asarray(got) - np.asarray(want)).max(-1)
-    assert (d > 1e-3).mean() < 0.02
-    reb, n_reb = render_pt_rebin(cfg, scene, POS, QUAT, 2, KEY, bvh=cs)
-    np.testing.assert_array_equal(np.asarray(reb), np.asarray(got))
-    assert float(n_reb) == float(n_got)
 
 
 def test_env_map_sharded_matches_unsharded():

@@ -1,9 +1,7 @@
 """Path tracing over instanced (two-level) scenes — VERDICT round-2 item 2.
 
 The full NEE+MIS bounce loop runs over an InstancedClusters scene: the
-XLA path launches the instanced Pallas intersector per bounce; the
-megakernel builds a KernelInstances view and keeps the whole loop
-in-kernel. A 1-instance identity scene must match the single-mesh
+XLA path launches the instanced Pallas intersector per bounce. A 1-instance identity scene must match the single-mesh
 ClusterSet path (same Baldwin-Weber tests, exact identity transform).
 """
 
@@ -64,36 +62,6 @@ def test_single_identity_instance_matches_single_mesh():
     np.testing.assert_allclose(np.asarray(img_inst), np.asarray(img_single),
                                rtol=1e-5, atol=1e-6)
     assert float(jnp.max(img_single)) > 0.0
-
-
-def test_instanced_mega_matches_xla():
-    """In-kernel KernelInstances bounce loop == per-bounce pallas launches."""
-    from raytracing_engine_tpu.ops.pallas.pt_kernel import render_pt_mega
-
-    mesh = _mesh()
-    cs = build_clusters(mesh, tri_mats=np.zeros(mesh.shape[0], np.int32))
-    bvh = build_bvh(mesh)
-    rz = np.array([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]],
-                  np.float32)
-    inst = make_instances(
-        bvh,
-        [(np.eye(3, dtype=np.float32), np.array([-1.5, 6.0, 0.0]), 1.0),
-         (rz, np.array([1.8, 7.0, 0.6]), 0.75)],
-        mats=np.array([0, 2], np.int32))
-    ic = make_instanced_clusters(inst, cs, scene=_scene())
-
-    cfg = PTConfig(width=24, height=16, max_bounces=2, rng="pcg")
-    pos, quat = _cam()
-    key = jax.random.PRNGKey(4)
-    img_x, _ = render_pt_fast(cfg, _scene(), pos, quat, 2, key, bvh=ic)
-    img_m, nr = render_pt_mega(cfg, _scene(), pos, quat, 2, key, bvh=ic,
-                               interpret=True, tile=(8, 128))
-    np.testing.assert_allclose(np.asarray(img_m), np.asarray(img_x),
-                               rtol=2e-5, atol=2e-6)
-    assert float(nr) > 0
-    # both instances visible: per-instance materials produce different hues
-    img = np.asarray(img_x)
-    assert float(img.max()) > 0.0
 
 
 def test_refuses_emissive_instances():

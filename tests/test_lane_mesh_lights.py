@@ -125,12 +125,7 @@ def test_lane_beats_per_pass_variance():
 
 def test_three_engines_agree():
     """Stacked integrator (which REFUSES per-pass mesh lights but runs
-    lane mode) vs wavefront vs megakernel (80 emissive tris > the unroll
-    limit, so the megakernel needs the cluster sweep for intersection
-    while lane NEE samples the mesh)."""
-    from raytracing_engine_tpu.accel.clusters import build_clusters
-    from raytracing_engine_tpu.ops.pallas.pt_kernel import render_pt_mega
-
+    lane mode) vs wavefront (80 emissive tris > the unroll limit)."""
     scene, tris, tri_mats = _scene("lane", subdivisions=1)
     cfg = PTConfig(width=48, height=32, max_bounces=2)
     a, na = render_pt(cfg, scene, POS, QUAT, 8, KEY)
@@ -139,32 +134,3 @@ def test_three_engines_agree():
     assert np.abs(a - b).max() < 2e-3
     assert abs(a.mean() - b.mean()) < 1e-5
     assert float(na) == float(nb)
-    cs = build_clusters(tris, tri_mats=tri_mats)
-    cfgp = dataclasses.replace(cfg, width=128, height=16, rng="pcg")
-    want, n_want = render_pt_fast(cfgp, scene, POS, QUAT, 2, KEY, bvh=cs)
-    got, n_got = render_pt_mega(cfgp, scene, POS, QUAT, 2, KEY, bvh=cs)
-    d = np.abs(np.asarray(got) - np.asarray(want)).max(-1)
-    assert (d > 1e-3).mean() < 0.02, f"{(d > 1e-3).mean():.3%} diverged"
-    assert float(n_want) == float(n_got)
-
-
-@pytest.mark.slow
-def test_cluster_and_rebin_paths():
-    """70k-class path: the emissive mesh rides the cluster sweep for
-    intersection while lane NEE samples it — mega == rebin bit-equal."""
-    from raytracing_engine_tpu.accel.clusters import build_clusters
-    from raytracing_engine_tpu.ops.pallas.pt_kernel import (
-        render_pt_mega,
-        render_pt_rebin,
-    )
-
-    scene, tris, tri_mats = _scene("lane")
-    cs = build_clusters(tris, tri_mats=tri_mats)
-    cfg = PTConfig(width=128, height=16, max_bounces=2, rng="pcg")
-    want, n_want = render_pt_fast(cfg, scene, POS, QUAT, 1, KEY, bvh=cs)
-    got, n_got = render_pt_mega(cfg, scene, POS, QUAT, 1, KEY, bvh=cs)
-    d = np.abs(np.asarray(got) - np.asarray(want)).max(-1)
-    assert (d > 1e-3).mean() < 0.02
-    reb, n_reb = render_pt_rebin(cfg, scene, POS, QUAT, 1, KEY, bvh=cs)
-    np.testing.assert_array_equal(np.asarray(reb), np.asarray(got))
-    assert float(n_reb) == float(n_got)

@@ -7,7 +7,7 @@ The reference shades every light it has (a flat loop,
 /root/reference/shaders/fragment.glsl:170-185); at 8 lights that is fine.
 The tree is the north-star many-light answer: selection cost stays a
 static C-axis + L-axis walk of vector ops (no pointer chasing, no
-gathers), which is the TPU-native reading of a light BVH.
+gathers), which is the gather-free reading of a light BVH.
 """
 
 import dataclasses
@@ -227,20 +227,3 @@ def test_tree_unbiased_with_bsdf_hits():
     assert floor.mean() > 0.9
     am, bm = float(a[floor].mean()), float(b[floor].mean())
     assert abs(am - bm) / bm < 0.05
-
-
-@pytest.mark.slow
-def test_mega_matches_wavefront_tree():
-    """The megakernel runs the same _trace_core with the same pcg stream:
-    a tree-sampled render must be bit-identical between the XLA wavefront
-    and the (interpret-mode) Pallas megakernel."""
-    from raytracing_engine_tpu.ops.pallas.pt_kernel import render_pt_mega
-
-    cfg = PTConfig(width=32, height=16, max_bounces=2, rng="pcg",
-                   light_sampling="tree")
-    pos = jnp.array([0.0, 0.0, 1.0])
-    s = grid_light_scene(light_tree=4)
-    a, _ = render_pt_fast(cfg, s, pos, QUAT, 2, KEY)
-    b, _ = render_pt_mega(cfg, s, pos, QUAT, 2, KEY, interpret=True,
-                          tile=(8, 128))
-    np.testing.assert_array_equal(np.asarray(a), np.asarray(b))

@@ -135,23 +135,6 @@ def test_engines_agree():
     assert float(na) == float(nb)
 
 
-def test_megakernel_matches_wavefront():
-    from raytracing_engine_tpu.ops.pallas.pt_kernel import render_pt_mega
-
-    scene = build_pt_scene(
-        spheres=[((C[0], C[1], C[2]), R, 0), ((0.0, 6.0, -51.5), 50.0, 1)],
-        materials=[{"albedo": (0, 0, 0), "emission": (LE,) * 3,
-                    "kind": DIFFUSE},
-                   {"albedo": (0.6, 0.6, 0.6), "kind": DIFFUSE}])
-    cfg = PTConfig(width=128, height=16, max_bounces=2, rng="pcg",
-                   fog_density=SIG_T, fog_scatter=SIG_S)
-    want, n_want = render_pt_fast(cfg, scene, POS, QUAT, 2, KEY)
-    got, n_got = render_pt_mega(cfg, scene, POS, QUAT, 2, KEY)
-    d = np.abs(np.asarray(got) - np.asarray(want)).max(-1)
-    assert (d > 1e-3).mean() < 0.02, f"{(d > 1e-3).mean():.3%} diverged"
-    assert float(n_want) == float(n_got)
-
-
 def test_equiangular_noise_is_bounded():
     """The equiangular pdf cancels the 1/r² spike, so in-scatter noise is
     BOUNDED: no firefly tail even for rays passing close to the light

@@ -91,43 +91,6 @@ def test_mesh_light_chunk_invariance():
                                   np.asarray((a + b) / 2.0))
 
 
-@pytest.mark.slow
-def test_megakernel_mesh_light_matches_xla():
-    """The megakernel's SMEM per-pass row table draws the same stream as
-    the XLA path (same counter hash, same rows), so mesh-light renders
-    agree across execution modes."""
-    from raytracing_engine_tpu.accel.clusters import build_clusters
-    from raytracing_engine_tpu.ops.pallas.pt_kernel import render_pt_mega
-
-    lamp = icosphere(subdivisions=2, radius=1.0, center=(0.0, 6.0, 2.5))
-    floor = np.array(
-        [[[-8, -2, -1.5], [8, -2, -1.5], [8, 14, -1.5]],
-         [[-8, -2, -1.5], [8, 14, -1.5], [-8, 14, -1.5]]], np.float32)
-    tris = np.concatenate([floor, lamp], axis=0)
-    mats = np.array([0] * 2 + [1] * lamp.shape[0], np.int32)
-    scene = build_pt_scene(
-        spheres=[((1.2, 6.0, -0.6), 0.9, 2)],
-        triangles=tris, tri_mats=mats,
-        materials=[
-            {"albedo": (0.65, 0.6, 0.55), "kind": DIFFUSE},
-            {"albedo": (0, 0, 0), "emission": (6.0,) * 3, "kind": DIFFUSE},
-            {"albedo": (0.4, 0.45, 0.7), "kind": DIFFUSE},
-        ],
-        mesh_lights=True,
-    )
-    cs = build_clusters(tris, tri_mats=mats)
-    cfg = PTConfig(width=16, height=16, max_bounces=2, rng="pcg")
-    pos = jnp.array([0.0, -1.0, 0.5])
-    quat = jnp.array([0.0, 0.0, 0.0, 1.0])
-    key = jax.random.PRNGKey(7)
-
-    img_x, _ = render_pt_fast(cfg, scene, pos, quat, 2, key, bvh=cs)
-    img_m, _ = render_pt_mega(cfg, scene, pos, quat, 2, key, bvh=cs,
-                              interpret=True, tile=(8, 128))
-    np.testing.assert_allclose(np.asarray(img_m), np.asarray(img_x),
-                               rtol=2e-5, atol=2e-6)
-
-
 def test_mesh_light_matches_reference_integrator():
     """1k+-tri emissive mesh: mesh-light estimator vs the gather-based
     reference integrator (different RNG streams — statistical tolerance).

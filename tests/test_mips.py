@@ -1,9 +1,9 @@
 """Trilinear mip filtering (ray-cone LOD over packed mip chains).
 
 Covers VERDICT round-3 item 10: mip-chain atlas packing, LOD from ray
-spread, engine bit-exactness (fast == mega == rebin), and the None-gated
-off-state (a tex_mips scene renders bit-identically to an unmipped one
-under nearest/bilinear — level 0 IS the image).
+spread, and the None-gated off-state (a tex_mips scene renders
+bit-identically to an unmipped one under nearest/bilinear — level 0 IS
+the image).
 
 The reference renders analytic SDF colors with no textures at all
 (/root/reference/shaders/fragment.glsl); texture filtering is a
@@ -166,84 +166,6 @@ def test_trilinear_reduces_minification_variance():
     assert band_t.var() < 0.35 * band_n.var(), (band_t.var(), band_n.var())
     # and the local means agree (pre-filtering, not darkening/brightening)
     assert abs(band_t.mean() - band_n.mean()) < 0.08
-
-
-def test_trilinear_mega_matches_fast():
-    pos = jnp.zeros(3)
-    sc = _textured_scene(True)
-    cfg = _cfg(tex_filter="trilinear")
-    from raytracing_engine_tpu.ops.pallas.pt_kernel import render_pt_mega
-
-    want, n_want = render_pt_fast(cfg, sc, pos, QUAT, 2, KEY)
-    got, n_got = render_pt_mega(cfg, sc, pos, QUAT, 2, KEY,
-                                tile=(16, 128))
-    np.testing.assert_array_equal(np.asarray(want), np.asarray(got))
-    assert int(n_want) == int(n_got)
-
-
-@pytest.mark.slow
-def test_trilinear_rebin_matches_mega_on_mesh():
-    """Cluster-path coverage: a textured sphere + an (untextured) mesh so
-    the rebin per-bounce launches carry the tacc state plane through the
-    image-wide regroup sort — any transport slip breaks bit-exactness."""
-    from raytracing_engine_tpu.accel import icosphere
-    from raytracing_engine_tpu.accel.clusters import build_clusters
-    from raytracing_engine_tpu.ops.pallas.pt_kernel import (
-        render_pt_mega,
-        render_pt_rebin,
-    )
-
-    tris = icosphere(subdivisions=2, radius=1.2, center=(0.0, 5.0, 0.0))
-    img = _checker_img()
-    mats = [{"albedo": (0.6, 0.5, 0.4), "kind": DIFFUSE},
-            {"albedo": (0, 0, 0), "emission": (8.0,) * 3, "kind": DIFFUSE},
-            {"albedo": (1, 1, 1), "kind": DIFFUSE,
-             "image": {"pixels": img, "scale": 4.0}}]
-    scene = build_pt_scene(
-        spheres=[((3.0, 3.0, 3.0), 1.0, 1), ((0.0, 5.0, -52.0), 50.0, 2)],
-        triangles=tris, tri_mats=np.zeros(len(tris), np.int32),
-        materials=mats, tex_mips=True)
-    cs = build_clusters(tris, tri_mats=np.zeros(len(tris), np.int32))
-    cfg = PTConfig(width=32, height=16, max_bounces=2, rng="pcg",
-                   tex_filter="trilinear")
-    pos = jnp.zeros(3)
-    want, n_want = render_pt_mega(cfg, scene, pos, QUAT, 2, KEY, bvh=cs)
-    got, n_got = render_pt_rebin(cfg, scene, pos, QUAT, 2, KEY, bvh=cs,
-                                 rebin="oct,morton")
-    np.testing.assert_array_equal(np.asarray(want), np.asarray(got))
-    assert int(n_want) == int(n_got)
-
-
-def test_trilinear_rebin_transport_small():
-    """Non-slow guard on the riskiest transport path (advisor round-4):
-    the tacc state plane must survive the rebin regroup sort bit-exactly.
-    Tiny mesh (subdiv-1), 1 spp, 1 bounce — one 'oct' regroup gap."""
-    from raytracing_engine_tpu.accel import icosphere
-    from raytracing_engine_tpu.accel.clusters import build_clusters
-    from raytracing_engine_tpu.ops.pallas.pt_kernel import (
-        render_pt_mega,
-        render_pt_rebin,
-    )
-
-    tris = icosphere(subdivisions=1, radius=1.2, center=(0.0, 5.0, 0.0))
-    img = _checker_img()
-    mats = [{"albedo": (0.6, 0.5, 0.4), "kind": DIFFUSE},
-            {"albedo": (0, 0, 0), "emission": (8.0,) * 3, "kind": DIFFUSE},
-            {"albedo": (1, 1, 1), "kind": DIFFUSE,
-             "image": {"pixels": img, "scale": 4.0}}]
-    scene = build_pt_scene(
-        spheres=[((3.0, 3.0, 3.0), 1.0, 1), ((0.0, 5.0, -52.0), 50.0, 2)],
-        triangles=tris, tri_mats=np.zeros(len(tris), np.int32),
-        materials=mats, tex_mips=True)
-    cs = build_clusters(tris, tri_mats=np.zeros(len(tris), np.int32))
-    cfg = PTConfig(width=16, height=8, max_bounces=1, rng="pcg",
-                   tex_filter="trilinear")
-    pos = jnp.zeros(3)
-    want, n_want = render_pt_mega(cfg, scene, pos, QUAT, 1, KEY, bvh=cs)
-    got, n_got = render_pt_rebin(cfg, scene, pos, QUAT, 1, KEY, bvh=cs,
-                                 rebin="oct")
-    np.testing.assert_array_equal(np.asarray(want), np.asarray(got))
-    assert int(n_want) == int(n_got)
 
 
 def test_sceneio_tex_mips(tmp_path):

@@ -1,6 +1,6 @@
 """Tangent-space normal mapping over the shared texture atlas.
 
-The TPU design constraint mirrors UV textures (test_uv_texture.py): the
+The design constraint mirrors UV textures (test_uv_texture.py): the
 map texel fetch reuses the lane-axis atlas fetch, and the tangent frame
 is DERIVED, never stored — triangles use the texture-u gradient
 d(u_tex)/dp = du1*r1 + du2*r2 from the Baldwin–Weber barycentric
@@ -107,17 +107,6 @@ def test_tilted_map_changes_shading():
     assert bool(jnp.isfinite(a).all())
 
 
-def test_sphere_mega_matches_wavefront_bitexact():
-    from raytracing_engine_tpu.ops.pallas.pt_kernel import render_pt_mega
-
-    scene = sphere_scene(tilt_map())
-    cfg = PTConfig(width=32, height=32, max_bounces=2, rng="pcg")
-    a, _ = render_pt_fast(cfg, scene, POS, QUAT, 4, KEY)
-    b, _ = render_pt_mega(cfg, scene, POS, QUAT, 4, KEY, tile=(32, 128))
-    np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-    assert float(jnp.mean(a)) > 1e-3
-
-
 def test_integrator_parity_spheres():
     scene = sphere_scene(tilt_map())
     cfg = PTConfig(width=24, height=24, max_bounces=2, rng="threefry")
@@ -180,68 +169,12 @@ def mesh_scene(nmap):
         ])
 
 
-def test_mesh_mega_matches_wavefront_bitexact():
-    from raytracing_engine_tpu.accel.clusters import build_clusters
-    from raytracing_engine_tpu.ops.pallas.pt_kernel import render_pt_mega
-
-    tris, uvs, scene = mesh_scene(tilt_map())
-    cs = build_clusters(tris, vertex_uvs=uvs)
-    cfg = PTConfig(width=32, height=32, max_bounces=2, rng="pcg")
-    a, _ = render_pt_fast(cfg, scene, POS, QUAT, 4, KEY, bvh=cs)
-    b, _ = render_pt_mega(cfg, scene, POS, QUAT, 4, KEY, bvh=cs,
-                          tile=(32, 128))
-    np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-    assert float(jnp.mean(a)) > 1e-4
-
-
 def test_mesh_integrator_parity():
     _, _, scene = mesh_scene(tilt_map())
     cfg = PTConfig(width=24, height=24, max_bounces=2, rng="threefry")
     a, _ = render_pt(cfg, scene, POS, QUAT, 2, jax.random.PRNGKey(3))
     b, _ = render_pt_fast(cfg, scene, POS, QUAT, 2, jax.random.PRNGKey(3))
     np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=1e-5)
-
-
-@pytest.mark.slow
-def test_instanced_normal_map_mega_matches_xla():
-    """Normal-mapped instanced scene: tangents rotate into world space
-    with the instance (same R as the normal); the in-kernel and XLA
-    two-level paths agree."""
-    from raytracing_engine_tpu.accel import build_bvh
-    from raytracing_engine_tpu.accel.clusters import build_clusters
-    from raytracing_engine_tpu.accel.instancing import (
-        make_instanced_clusters, make_instances)
-    from raytracing_engine_tpu.ops.pallas.pt_kernel import render_pt_mega
-
-    tris, uvs = quad(half=1.0)
-    cs = build_clusters(tris, tri_mats=np.zeros(2, np.int32),
-                        vertex_uvs=uvs)
-    bvh = build_bvh(tris)
-    rz = np.array([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]],
-                  np.float32)
-    inst = make_instances(
-        bvh,
-        [(np.eye(3, dtype=np.float32), np.array([-1.5, 2.0, 0.0]), 1.0),
-         (rz, np.array([1.5, 3.0, 0.5]), 0.75)],
-        mats=np.zeros(2, np.int32))
-    scene = build_pt_scene(
-        spheres=[((3.0, 5.0, 4.0), 1.0, 1), ((0.0, 6.0, -52.0), 50.0, 2)],
-        materials=[
-            {"albedo": (0.7, 0.55, 0.4), "kind": DIFFUSE,
-             "normal": {"pixels": tilt_map(), "scale": 1.0}},
-            {"albedo": (0, 0, 0), "emission": (12.0, 11.0, 10.0),
-             "kind": DIFFUSE},
-            {"albedo": (0.5, 0.5, 0.65), "kind": DIFFUSE},
-        ])
-    ic = make_instanced_clusters(inst, cs, scene=scene)
-    cfg = PTConfig(width=24, height=16, max_bounces=2, rng="pcg")
-    pos = jnp.array([0.0, -2.0, 0.3])
-    img_x, _ = render_pt_fast(cfg, scene, pos, QUAT, 2, KEY, bvh=ic)
-    img_m, _ = render_pt_mega(cfg, scene, pos, QUAT, 2, KEY, bvh=ic,
-                              interpret=True, tile=(8, 128))
-    np.testing.assert_allclose(np.asarray(img_m), np.asarray(img_x),
-                               rtol=2e-5, atol=2e-6)
-    assert float(jnp.max(img_x)) > 0.0
 
 
 # ------------------------------------------------------------ AOV + IO

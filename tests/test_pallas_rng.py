@@ -1,28 +1,10 @@
-"""Pallas hardware-PRNG uniforms: determinism, range, moments, physics."""
+"""Counter-based RNG streams: seeds, moments, determinism, physics."""
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 
-from raytracing_engine_tpu.ops.pallas.rng import key_to_seed, uniform_planes
-
-
-def test_uniform_determinism_and_range():
-    a = np.asarray(uniform_planes(jnp.int32(42), 3, 64, 128))
-    b = np.asarray(uniform_planes(jnp.int32(42), 3, 64, 128))
-    c = np.asarray(uniform_planes(jnp.int32(43), 3, 64, 128))
-    np.testing.assert_array_equal(a, b)
-    assert np.abs(a - c).max() > 0.1  # different seed, different stream
-    assert a.min() >= 0.0 and a.max() < 1.0
-
-
-def test_uniform_moments():
-    u = np.asarray(uniform_planes(jnp.int32(7), 4, 128, 256)).ravel()
-    assert abs(u.mean() - 0.5) < 5e-3
-    assert abs(u.var() - 1.0 / 12.0) < 5e-3
-    # planes/tiles decorrelated: neighboring tiles differ
-    v = np.asarray(uniform_planes(jnp.int32(7), 1, 128, 256))[0]
-    assert np.abs(v[:16] - v[16:32]).mean() > 0.2
+from raytracing_engine_tpu.ops.rng_pcg import key_to_seed
 
 
 def test_key_to_seed_distinct():
@@ -30,24 +12,6 @@ def test_key_to_seed_distinct():
     k2 = jax.random.PRNGKey(2)
     assert int(key_to_seed(k1)) != int(key_to_seed(k2))
     assert int(key_to_seed(k1)) == int(key_to_seed(jax.random.PRNGKey(1)))
-
-
-def test_furnace_with_pallas_rng():
-    """Physics invariants hold for the hardware RNG stream too."""
-    from raytracing_engine_tpu.pathtracer import PTConfig
-    from raytracing_engine_tpu.pathtracer.scenes import furnace_scene
-    from raytracing_engine_tpu.pathtracer.wavefront import render_pt_fast
-
-    cfg = PTConfig(width=48, height=32, max_bounces=3, rng="pallas")
-    img, _ = render_pt_fast(cfg, furnace_scene(albedo=0.5, le=1.0),
-                            jnp.zeros(3), jnp.array([0.0, 0.0, 0.0, 1.0]),
-                            64, jax.random.PRNGKey(3))
-    img = np.asarray(img)
-    corners = np.stack([img[0, 0], img[0, -1], img[-1, 0], img[-1, -1]])
-    np.testing.assert_allclose(corners, 1.0, atol=1e-4)
-    h, w, _ = img.shape
-    patch = img[h // 2 - 2 : h // 2 + 2, w // 2 - 2 : w // 2 + 2]
-    assert abs(patch.mean() - 0.5) < 0.05
 
 
 def test_pcg_moments_and_determinism():

@@ -194,15 +194,13 @@ def _render_sequence_case(scene):
     quats = jnp.asarray(np.array(
         [[0, 0, 0, 1.0], [0.05, 0, 0, 0.9987], [0, 0, 0.05, 0.9987]],
         np.float32))
-    for independent in (True, False):
-        seq = render_sequence(cfg, scene, positions, quats,
-                              fn=conemarch.render, independent=independent)
-        assert seq.shape == (3, 3, 64, 64)  # (K, channel, H, W) — see docstring
-        frames = np.moveaxis(np.asarray(seq), 1, -1)
-        for i in range(3):
-            want = conemarch.render(cfg, scene, positions[i], quats[i])
-            np.testing.assert_allclose(frames[i], np.asarray(want),
-                                       rtol=1e-6, atol=1e-6)
+    seq = render_sequence(cfg, scene, positions, quats, fn=conemarch.render)
+    assert seq.shape == (3, 3, 64, 64)  # (K, channel, H, W) — see docstring
+    frames = np.moveaxis(np.asarray(seq), 1, -1)
+    for i in range(3):
+        want = conemarch.render(cfg, scene, positions[i], quats[i])
+        np.testing.assert_allclose(frames[i], np.asarray(want),
+                                   rtol=1e-6, atol=1e-6)
 
 
 def test_frameloop_chunked_run_matches_per_frame(scene):

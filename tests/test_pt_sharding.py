@@ -61,71 +61,6 @@ def test_sharded_soa_pcg_matches_unsharded(setup):
                                rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("tiles,samples", [(4, 2), (2, 4)])
-def test_sharded_mega_matches_unsharded_mega(setup, tiles, samples):
-    """Megakernel per device band == unsharded megakernel bit-for-bit
-    (counter-based pcg is tiling-invariant; psum of disjoint spp ranges)."""
-    import dataclasses
-
-    from raytracing_engine_tpu.ops.pallas.pt_kernel import render_pt_mega
-
-    cfg, scene, pos, quat, _, _ = setup
-    cfg = dataclasses.replace(cfg, rng="pcg")
-    tile = (8, 32)
-    want, want_rays = render_pt_mega(cfg, scene, pos, quat, 8, KEY, tile=tile)
-    got, nrays = render_pt_sharded(cfg, scene, pos, quat, 8, KEY,
-                                   make_mesh(tiles, samples), mega=True,
-                                   tile=tile)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want),
-                               rtol=1e-6, atol=1e-7)
-    assert abs(float(nrays) - float(want_rays)) < 1e-3
-
-
-def test_sharded_mega_cluster_scene(setup):
-    """Sharded megakernel with a ClusterSet (mesh scene) matches the
-    unsharded cluster megakernel."""
-    import dataclasses
-
-    from raytracing_engine_tpu.accel import icosphere
-    from raytracing_engine_tpu.accel.clusters import build_clusters
-    from raytracing_engine_tpu.ops.pallas.pt_kernel import render_pt_mega
-    from raytracing_engine_tpu.pathtracer.scene import DIFFUSE, build_pt_scene
-
-    tris = icosphere(subdivisions=2, radius=1.2, center=(0.0, 5.0, 0.0))
-    cs = build_clusters(tris, tri_mats=np.zeros(len(tris), np.int32))
-    scene = build_pt_scene(
-        spheres=[((3.0, 3.0, 3.0), 1.0, 1)],
-        triangles=tris, tri_mats=np.zeros(len(tris), np.int32),
-        materials=[{"albedo": (0.6, 0.5, 0.4), "kind": DIFFUSE},
-                   {"albedo": (0, 0, 0), "emission": (8.0,) * 3,
-                    "kind": DIFFUSE}],
-    )
-    cfg = PTConfig(width=32, height=24, max_bounces=2, rng="pcg")
-    pos = jnp.zeros(3)
-    quat = jnp.array([0.0, 0.0, 0.0, 1.0])
-    tile = (8, 32)
-    want, _ = render_pt_mega(cfg, scene, pos, quat, 4, KEY, tile=tile, bvh=cs)
-    got, _ = render_pt_sharded(cfg, scene, pos, quat, 4, KEY,
-                               make_mesh(4, 2), bvh=cs, mega=True, tile=tile)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want),
-                               rtol=1e-6, atol=1e-7)
-
-    # smooth (vertex-normal) cluster table shards identically: the
-    # ROWS_SMOOTH rows ride the same replicated-pytree path
-    vn = (tris - np.array([0.0, 5.0, 0.0], np.float32)) / 1.2
-    cs_s = build_clusters(tris, tri_mats=np.zeros(len(tris), np.int32),
-                          vertex_normals=vn.astype(np.float32))
-    want_s, _ = render_pt_mega(cfg, scene, pos, quat, 4, KEY, tile=tile,
-                               bvh=cs_s)
-    got_s, _ = render_pt_sharded(cfg, scene, pos, quat, 4, KEY,
-                                 make_mesh(4, 2), bvh=cs_s, mega=True,
-                                 tile=tile)
-    np.testing.assert_allclose(np.asarray(got_s), np.asarray(want_s),
-                               rtol=1e-6, atol=1e-7)
-    # and the smooth render genuinely differs from the flat one
-    assert np.abs(np.asarray(want_s) - np.asarray(want)).max() > 1e-4
-
-
 def test_progressive_sharded_resume_across_mesh_shapes(setup, tmp_path):
     """A multi-chip progressive job checkpointed on one mesh shape resumes
     on ANOTHER shape (preemption/reshape survival) and reproduces the
@@ -148,10 +83,9 @@ def test_progressive_sharded_resume_across_mesh_shapes(setup, tmp_path):
     state = ProgressiveState(
         accum=jnp.zeros((cfg.height, cfg.width, 3), jnp.float32),
         spp_done=0, key=KEY, cam_pos=pos, cam_quat=quat)
-    # first 4 spp on a (2 tiles x 2 samples) mesh, megakernel per band
+    # first 4 spp on a (2 tiles x 2 samples) mesh, wavefront per band
     for state in progressive_render(cfg, scene, state, 4,
                                     passes_per_chunk=4, mesh=make_mesh(2, 2),
-                                    mega=True, tile=(8, 32),
                                     checkpoint_path=path):
         pass
     assert state.spp_done == 4
@@ -159,7 +93,6 @@ def test_progressive_sharded_resume_across_mesh_shapes(setup, tmp_path):
     state = load_checkpoint(path)
     for state in progressive_render(cfg, scene, state, 8,
                                     passes_per_chunk=4, mesh=make_mesh(4, 1),
-                                    mega=True, tile=(8, 32),
                                     checkpoint_path=path):
         pass
     assert state.spp_done == 8
@@ -198,40 +131,4 @@ def test_sharded_glass_env_dof_matches_single():
                                    make_mesh(4, 2))
     np.testing.assert_allclose(np.asarray(got), np.asarray(want),
                                rtol=1e-5, atol=1e-6)
-    assert abs(float(nrays) - float(want_rays)) < 1e-3
-
-
-def test_sharded_rebin_matches_unsharded_rebin():
-    """Rebin engine per device band == unsharded rebin bit-for-bit: the
-    regroup sort runs per band, but every RNG draw is keyed on the carried
-    global pixel coordinates, so band decomposition never changes a ray's
-    arithmetic (psum of disjoint spp ranges reassociates only the final
-    average)."""
-    import dataclasses
-
-    from raytracing_engine_tpu.accel import icosphere
-    from raytracing_engine_tpu.accel.clusters import build_clusters
-    from raytracing_engine_tpu.ops.pallas.pt_kernel import render_pt_rebin
-    from raytracing_engine_tpu.pathtracer.scene import DIFFUSE, build_pt_scene
-
-    tris = icosphere(subdivisions=2, radius=1.2, center=(0.0, 5.0, 0.0))
-    cs = build_clusters(tris, tri_mats=np.zeros(len(tris), np.int32))
-    scene = build_pt_scene(
-        spheres=[((3.0, 3.0, 3.0), 1.0, 1)],
-        triangles=tris, tri_mats=np.zeros(len(tris), np.int32),
-        materials=[{"albedo": (0.6, 0.5, 0.4), "kind": DIFFUSE},
-                   {"albedo": (0, 0, 0), "emission": (8.0,) * 3,
-                    "kind": DIFFUSE}],
-    )
-    cfg = PTConfig(width=32, height=32, max_bounces=2, rng="pcg")
-    pos = jnp.zeros(3)
-    quat = jnp.array([0.0, 0.0, 0.0, 1.0])
-    tile = (8, 32)
-    want, want_rays = render_pt_rebin(cfg, scene, pos, quat, 4, KEY,
-                                      tile=tile, bvh=cs)
-    got, nrays = render_pt_sharded(cfg, scene, pos, quat, 4, KEY,
-                                   make_mesh(4, 2), bvh=cs, rebin=True,
-                                   tile=tile)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want),
-                               rtol=1e-6, atol=1e-7)
     assert abs(float(nrays) - float(want_rays)) < 1e-3

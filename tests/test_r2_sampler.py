@@ -58,18 +58,6 @@ def test_r2_chunk_invariant():
                                np.asarray(whole), rtol=1e-6, atol=1e-6)
 
 
-def test_r2_mega_matches_fast_bitlevel():
-    from raytracing_engine_tpu.ops.pallas.pt_kernel import render_pt_mega
-
-    scene = cornell_box()
-    cfg = PTConfig(width=32, height=16, max_bounces=2, rng="pcg",
-                   sampler="r2")
-    a, _ = render_pt_fast(cfg, scene, POS, QUAT, 4, KEY)
-    b, _ = render_pt_mega(cfg, scene, POS, QUAT, 4, KEY)
-    d = np.abs(np.asarray(a) - np.asarray(b))
-    assert d.max() < 1e-5, d.max()
-
-
 def test_r2_requires_production_path():
     with pytest.raises(ValueError, match="r2"):
         render_pt(PTConfig(width=8, height=8, sampler="r2"),

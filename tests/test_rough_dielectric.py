@@ -97,24 +97,6 @@ def test_engines_agree():
     assert float(na) == float(nb)
 
 
-def test_megakernel_matches_wavefront():
-    from raytracing_engine_tpu.ops.pallas.pt_kernel import render_pt_mega
-
-    scene = build_pt_scene(
-        spheres=[((0.0, 4.0, 0.0), 1.0, 0), ((2.0, 5.0, 1.5), 0.6, 1)],
-        materials=[{"kind": DIELECTRIC, "ior": 1.5, "roughness": 0.25},
-                   {"albedo": (0, 0, 0), "emission": (6.0,) * 3,
-                    "kind": DIFFUSE}],
-        env=((0.2, 0.3, 0.5), (0.9, 0.9, 1.0)))
-    cfg = PTConfig(width=128, height=16, max_bounces=3, rng="pcg")
-    want, n_want = render_pt_fast(cfg, scene, POS, QUAT, 2, KEY)
-    got, n_got = render_pt_mega(cfg, scene, POS, QUAT, 2, KEY)
-    d = np.abs(np.asarray(got) - np.asarray(want)).max(-1)
-    assert (d > 1e-3).mean() < 0.02, f"{(d > 1e-3).mean():.3%} diverged"
-    assert d.mean() < 2e-4
-    assert float(n_want) == float(n_got)
-
-
 def test_transmission_blurs_with_roughness():
     """A bright area light behind a rough glass pane: transmitted energy
     stays comparable, but spatial spread grows with roughness (the visible

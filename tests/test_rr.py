@@ -52,16 +52,3 @@ def test_rr_wavefront_matches_reference():
     assert np.abs(a - b).max() < 6e-3
     assert abs(a.mean() - b.mean()) < 1e-4
     assert abs(float(na) - float(nb)) <= max(8.0, 1e-3 * float(na))
-
-
-@pytest.mark.slow
-def test_rr_megakernel_matches_wavefront():
-    from raytracing_engine_tpu.ops.pallas.pt_kernel import render_pt_mega
-
-    scene = cornell_box()
-    cfg = PTConfig(width=32, height=16, max_bounces=4, rng="pcg", rr_start=1)
-    want, _ = render_pt_fast(cfg, scene, POS, QUAT, 4, KEY)
-    got, _ = render_pt_mega(cfg, scene, POS, QUAT, 4, KEY)
-    d = np.abs(np.asarray(got) - np.asarray(want)).max(-1)
-    assert (d > 1e-3).mean() < 0.01
-    assert d.mean() < 1e-4

@@ -157,33 +157,6 @@ def test_face_normals_in_smooth_table_reproduce_flat_render():
 
 
 @pytest.mark.slow
-def test_mega_smooth_matches_wavefront_smooth():
-    """The in-kernel smooth attrs and the XLA gather-path interpolation
-    must produce the same render (same pcg stream; only hit-attr
-    provenance differs) — the smooth analog of
-    test_mega_cluster_mode_matches_wavefront."""
-    from raytracing_engine_tpu.ops.pallas.pt_kernel import render_pt_mega
-
-    tris, vn = _sphere_mesh()
-    cs = build_clusters(tris, vertex_normals=vn)
-    mats = [{"albedo": (0.6, 0.5, 0.4), "kind": DIFFUSE},
-            {"albedo": (0, 0, 0), "emission": (8.0,) * 3, "kind": DIFFUSE},
-            {"albedo": (0.5, 0.5, 0.6), "kind": DIFFUSE}]
-    scene = build_pt_scene(
-        spheres=[((3.0, 3.0, 3.0), 1.0, 1), ((0.0, 5.0, -52.0), 50.0, 2)],
-        triangles=tris, tri_mats=np.zeros(len(tris), np.int32),
-        materials=mats)
-    cfg = PTConfig(width=32, height=16, max_bounces=2, rng="pcg")
-    pos = jnp.zeros(3)
-    want, n_want = render_pt_fast(cfg, scene, pos, QUAT, 2, KEY, bvh=cs)
-    got, n_got = render_pt_mega(cfg, scene, pos, QUAT, 2, KEY, bvh=cs)
-    d = np.abs(np.asarray(got) - np.asarray(want)).max(-1)
-    assert (d > 1e-3).mean() < 0.02, f"{(d > 1e-3).mean():.3%} diverged"
-    assert d.mean() < 2e-4
-    assert abs(float(n_want) - float(n_got)) <= max(8.0, 1e-3 * float(n_want))
-
-
-@pytest.mark.slow
 def test_instanced_smooth_normals_rotate():
     """A smooth cluster table inside an instanced scene: the sweep
     interpolates in OBJECT space and the instance transform rotates the

@@ -68,21 +68,6 @@ def test_untextured_scene_bitexact():
     assert np.isfinite(np.asarray(img)).all()
 
 
-@pytest.mark.slow
-def test_checker_megakernel_matches_wavefront():
-    import dataclasses
-
-    from raytracing_engine_tpu.ops.pallas.pt_kernel import render_pt_mega
-
-    scene = checker_floor_scene()
-    cfg = PTConfig(width=32, height=16, max_bounces=2, rng="pcg")
-    want, _ = render_pt_fast(cfg, scene, POS, QUAT, 4, KEY)
-    got, _ = render_pt_mega(cfg, scene, POS, QUAT, 4, KEY)
-    d = np.abs(np.asarray(got) - np.asarray(want)).max(-1)
-    assert (d > 1e-3).mean() < 0.01
-    assert d.mean() < 1e-4
-
-
 def test_sceneio_checker(tmp_path):
     import json
 

@@ -1,11 +1,10 @@
 """UV texturing: atlas packing, sphere/mesh UVs, image textures, OBJ vt.
 
 The reference shades untextured analytic SDFs (fragment.glsl has no
-samplers); UV/image texturing is a north-star extension. The TPU design
-constraint: in-kernel texel fetches must avoid sublane gathers — the
-(3K, 128) channel-major atlas makes the fetch a lane-axis take_along_axis
-plus a K-row select chain (pathtracer.wavefront._atlas_fetch), shared
-bit-identically by the XLA integrators and the Mosaic megakernel.
+samplers); UV/image texturing is a north-star extension. The (3K, 128)
+channel-major atlas makes the fetch a lane-axis take_along_axis plus a
+K-row select chain (pathtracer.wavefront._atlas_fetch), shared
+bit-identically by both integrators.
 """
 
 import numpy as np
@@ -160,17 +159,6 @@ def test_image_textured_scene_flags():
     assert s.mat_tex_rect is not None and s.tex_atlas.shape[1] == 128
 
 
-def test_image_texture_mega_matches_wavefront_bitexact():
-    from raytracing_engine_tpu.ops.pallas.pt_kernel import render_pt_mega
-
-    scene = textured_sphere_scene()
-    cfg = PTConfig(width=64, height=64, max_bounces=2, rng="pcg")
-    a, _ = render_pt_fast(cfg, scene, POS, QUAT, 4, KEY)
-    b, _ = render_pt_mega(cfg, scene, POS, QUAT, 4, KEY, tile=(32, 128))
-    np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-    assert float(jnp.mean(a)) > 1e-3  # scene actually renders
-
-
 def test_image_texture_integrator_parity():
     """The stacked cross-check integrator agrees with the SoA wavefront
     on a UV-textured mesh + sphere scene (same sampling decisions)."""
@@ -194,6 +182,39 @@ def test_image_texture_integrator_parity():
     a, _ = render_pt(cfg, scene, POS, QUAT, 4, jax.random.PRNGKey(3))
     b, _ = render_pt_fast(cfg, scene, POS, QUAT, 4, jax.random.PRNGKey(3))
     np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=1e-5)
+
+
+def test_mesh_uv_cluster_path_matches_stacked():
+    """Cluster-table UVs (the Triton kernel's rows 32-37, interpolated by
+    the wavefront's row gathers) against the stacked reference integrator
+    on the same scene and threefry stream: the same image up to f32
+    rounding (Baldwin-Weber rows vs Moller-Trumbore barycentrics)."""
+    from raytracing_engine_tpu.accel.clusters import build_clusters
+
+    tris, uvs = quad_with_uvs()
+    tex = np.zeros((8, 8, 3), np.float32)
+    tex[:, :4, 0] = 1.0
+    tex[:, 4:, 1] = 1.0
+    scene = build_pt_scene(
+        spheres=[((0.0, 14.0, -103.0), 100.0, 1)],
+        triangles=tris, tri_mats=np.zeros(2, np.int32), tri_uvs=uvs,
+        materials=[
+            {"albedo": (0.5, 0.5, 0.5), "kind": DIFFUSE,
+             "image": {"pixels": tex, "scale": 1.0}},
+            {"albedo": (0, 0, 0), "emission": (30.0, 30.0, 30.0),
+             "kind": DIFFUSE},
+        ])
+    cs = build_clusters(tris, tri_mats=np.zeros(2, np.int32),
+                        vertex_uvs=uvs)
+    cfg = PTConfig(width=48, height=40, max_bounces=2, rng="threefry")
+    key = jax.random.PRNGKey(3)
+    a, _ = render_pt(cfg, scene, POS, QUAT, 4, key)
+    b, _ = render_pt_fast(cfg, scene, POS, QUAT, 4, key, bvh=cs)
+    a, b = np.asarray(a), np.asarray(b)
+    assert float(a.mean()) > 1e-3
+    d = np.abs(a - b).max(-1)
+    assert (d > 1e-3).mean() < 0.02
+    assert abs(float(a.mean()) - float(b.mean())) < 1e-3
 
 
 def test_image_texture_colors_sampled():
@@ -224,34 +245,6 @@ def test_image_texture_colors_sampled():
     assert reds.any() and blues.any()
     # texel colors are exact (nearest fetch, no filtering)
     assert np.isin(alb[hit].round(4), [0.0, 1.0]).all()
-
-
-def test_mesh_uv_mega_matches_wavefront_bitexact():
-    """Cluster-table UVs: the megakernel's in-kernel interpolation and
-    the XLA wavefront's row-gather interpolation are the same program."""
-    from raytracing_engine_tpu.accel.clusters import build_clusters
-    from raytracing_engine_tpu.ops.pallas.pt_kernel import render_pt_mega
-
-    tris, uvs = quad_with_uvs()
-    cs = build_clusters(tris, vertex_uvs=uvs)
-    tex = np.zeros((8, 8, 3), np.float32)
-    tex[:, :4, 0] = 1.0
-    tex[:, 4:, 1] = 1.0
-    scene = build_pt_scene(
-        spheres=[((0.0, 14.0, -103.0), 100.0, 1)],
-        triangles=tris, tri_mats=np.zeros(2, np.int32),
-        materials=[
-            {"albedo": (0.5, 0.5, 0.5), "kind": DIFFUSE,
-             "image": {"pixels": tex, "scale": 1.0}},
-            {"albedo": (0, 0, 0), "emission": (30.0, 30.0, 30.0),
-             "kind": DIFFUSE},
-        ])
-    cfg = PTConfig(width=64, height=64, max_bounces=2, rng="pcg")
-    a, _ = render_pt_fast(cfg, scene, POS, QUAT, 4, KEY, bvh=cs)
-    b, _ = render_pt_mega(cfg, scene, POS, QUAT, 4, KEY, bvh=cs,
-                          tile=(32, 128))
-    np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-    assert float(jnp.mean(a)) > 1e-3
 
 
 def test_untextured_scene_has_no_uv_cost():
@@ -391,21 +384,6 @@ def test_sample_rect_bilinear_matches_manual_lerp():
     want = ((img[ya, xa] * (1 - wx) + img[ya, xb] * wx) * (1 - wy)
             + (img[yb, xa] * (1 - wx) + img[yb, xb] * wx) * wy)
     np.testing.assert_allclose(got, want, atol=1e-6)
-
-
-def test_bilinear_mega_matches_wavefront_bitexact():
-    from raytracing_engine_tpu.ops.pallas.pt_kernel import render_pt_mega
-
-    scene = textured_sphere_scene()
-    cfg = PTConfig(width=64, height=64, max_bounces=2, rng="pcg",
-                   tex_filter="bilinear")
-    a, _ = render_pt_fast(cfg, scene, POS, QUAT, 4, KEY)
-    b, _ = render_pt_mega(cfg, scene, POS, QUAT, 4, KEY, tile=(32, 128))
-    np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-    # filtering actually changes the render vs nearest
-    cfg_n = PTConfig(width=64, height=64, max_bounces=2, rng="pcg")
-    c, _ = render_pt_fast(cfg_n, scene, POS, QUAT, 4, KEY)
-    assert float(jnp.abs(a - c).max()) > 1e-3
 
 
 def test_bilinear_integrator_parity():
