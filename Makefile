@@ -19,8 +19,8 @@ test-core:       ## quick correctness core (golden parity, units, lowering)
 	  tests/test_triton_lowering.py tests/test_pallas_kernels.py \
 	  "tests/test_sharding.py::test_sharded_matches_single_device[8-1]"
 
-# GPU targets: run on a machine with an NVIDIA GPU (through the chip tool
-# from a machine without one). Each refuses to run on the CPU.
+# GPU targets: run on a machine with an NVIDIA GPU. Each refuses to run on
+# the CPU.
 smoke:           ## one card: main paths, parity, timings, pytest -m gpu
 	python chip_smoke.py
 
